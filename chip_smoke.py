@@ -2,12 +2,17 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernel from ``xarray_parcel_tpu_torch/csrc`` with
-``nvcc``, builds the moist-adiabat coefficients on the card, holds the
-kernel against its plain PyTorch twin (float64 and float32), then drives the
-two public entry points, ``fused_surface_cape_cin`` and
-``conv_properties_fused``, at 786,432 columns x 90 levels in float32 and
-checks their outputs against the plain path on the CPU.  Each phase prints
+Builds the port's CUDA kernels from ``xarray_parcel_tpu_torch/csrc`` with
+``nvcc`` (the CAPE/CIN solve ``fused_cape.cu`` and the diagnostics tail
+``diag_tail.cu``), builds the moist-adiabat coefficients on the card, holds
+each kernel against its plain PyTorch twin (float64 and float32 on hard
+columns; the solve also with its profile tracks), then times both at the
+main path's shape and holds the timed outputs against each other there.
+Then it drives the public entry points -- ``fused_surface_cape_cin``,
+``conv_properties_fused``, ``min_conv_properties_fused`` and
+``storm_proxies`` -- at 786,432
+columns x 90 levels in float32, counts each path's kernel launches and
+checks the outputs against the plain path on the CPU.  Each phase prints
 one line; the last two lines are the kernel record and the result line.
 
 Exits non-zero, with no result line, when there is no CUDA device or when
@@ -24,11 +29,13 @@ import torch
 
 import xarray_parcel_tpu_torch as xt
 from xarray_parcel_tpu_torch import _build, adiabat, fused, parcels
+from xarray_parcel_tpu_torch import diagnostics as diag
 
 MAIN_COLUMNS = 786_432          # the pipeline batch of the TPU-era bench
 LEVELS = 90
 CHECK_COLUMNS = 4096            # subsample held against the CPU plain path
 HARD_COLUMNS = 2055             # x4 parcel variants: 8,220 columns
+TAIL_COLUMNS = 4099             # hard columns of the tail check
 GOLDEN = dict(cape=230.20, cin=-58.07, tol=0.5)
 F64_ATOL = 1e-6
 # float32 budget (docs/performance.md): relative to each output's scale.
@@ -94,6 +101,59 @@ def hard_columns(n, L=LEVELS, seed=7):
     t[r[6 * k:7 * k], 0] += 45.0
     p[r[7 * k:7 * k + 3]] = np.nan
     return p, t, td
+
+
+def tail_columns(n, L=LEVELS, seed=11):
+    """Soundings (float64 p, t, td, h) with the cases the diagnostics-tail
+    kernel must get right: levels exactly at 850, 700 and 500 hPa and
+    duplicated there, columns topping out below 500 hPa, T exactly
+    273.15 K at a level, no 0 C crossing, inversions with several
+    crossings, NaN heights, NaN levels (interior, top padding and a
+    leading prefix), a NaN temperature at an anchor, columns stored top
+    down (the lowest crossing is then the last one found) and all-NaN
+    columns."""
+    rng = np.random.default_rng(seed)
+    p = np.linspace(1010.0, 150.0, L) + rng.normal(0, 0.4, (n, L))
+    p = -np.sort(-p, axis=-1)
+    t = 300.0 - 80.0 * (1.0 - (p / 1010.0) ** 0.3) + rng.normal(0, 1, (n, L))
+    td = t - np.abs(rng.normal(3.0, 2.0, (n, L))) - 0.1
+    h = 44330.0 * (1.0 - (p / 1013.25) ** 0.19) + rng.normal(0, 5, (n, L))
+    groups = np.array_split(rng.permutation(n), 14)
+    for target, g, dup in ((850.0, groups[0], False), (700.0, groups[1], False),
+                           (500.0, groups[2], False), (850.0, groups[3], True),
+                           (500.0, groups[4], True)):
+        j = np.abs(p[g] - target).argmin(-1)
+        p[g, j] = target
+        if dup:                            # the level above duplicates it
+            p[g, np.minimum(j + 1, L - 1)] = target
+    g = groups[5]                          # tops out below 500 hPa
+    p[g] = np.linspace(1010.0, 560.0, L)
+    g = groups[6]                          # T exactly 0 C at a level
+    j = np.abs(t[g] - 273.15).argmin(-1)
+    t[g, j] = 273.15
+    g = groups[7]                          # no 0 C crossing
+    t[g[: len(g) // 2]] += 120.0
+    t[g[len(g) // 2:]] -= 90.0
+    g = groups[8]                          # inversions: several crossings
+    wave = np.array([2.0, -1.5, 1.0, -2.0, 0.5, -1.0])[:L - L // 3]
+    j = slice(L // 3, L // 3 + len(wave))
+    t[g, j] = 273.15 + wave
+    td[g, j] = t[g, j] - 0.3
+    g = groups[9]                          # NaN heights and NaN levels
+    h[g, rng.integers(0, L, len(g))] = np.nan
+    p[g, rng.integers(0, L, len(g))] = np.nan
+    g = groups[10]                         # NaN top padding, leading prefix
+    p[g, -8:] = np.nan
+    p[g, :3] = np.nan
+    g = groups[11]                         # NaN temperature at an anchor
+    j = np.abs(p[g] - 850.0).argmin(-1)
+    p[g, j] = 850.0
+    t[g, j] = np.nan
+    g = groups[12]                         # stored top down
+    p[g], t[g], td[g], h[g] = (x[g, ::-1] for x in (p, t, td, h))
+    g = groups[13][:3]                     # all-NaN columns
+    p[g] = t[g] = td[g] = h[g] = np.nan
+    return p, t, td, h
 
 
 def kernel_args(p, t, td, tables):
@@ -166,8 +226,8 @@ def compare(name, got, want, dtype_name):
 
 def cuda_ms(fn, repeats):
     """Mean device milliseconds of ``fn`` over ``repeats`` launches, after
-    one warm-up."""
-    fn()
+    one warm-up, and the warm-up's result."""
+    out = fn()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
@@ -176,7 +236,7 @@ def cuda_ms(fn, repeats):
         fn()
     stop.record()
     stop.synchronize()
-    return start.elapsed_time(stop) / repeats
+    return start.elapsed_time(stop) / repeats, out
 
 
 def wall_median(fn, repeats):
@@ -211,9 +271,9 @@ def main():
         f'CUDA {torch.version.cuda}')
     log(smi)
 
-    # 2. Kernel library.
+    # 2. Kernel library: both kernels, one nvcc per source.
     path, build_s = _build.build(verbose=True)
-    fused._library()
+    _build.load_library()
     log(f'[2 build] {path} in {build_s:.2f} s (0.00 = already built)')
 
     # 3. Coefficients, built on the card in float64.
@@ -235,9 +295,10 @@ def main():
     log(f'[3 tables] coeffs {tuple(tab64.coeffs.shape)} built on the card in '
         f'{tables_s:.2f} s; max |card - host build| {fit_err:.2e}')
 
-    # 4. Kernel against the plain twin on the card.
-    errs = {}
+    # 4. Each kernel against its plain twin on the card.
+    errs, tail_errs = {}, {}
     p_np, t_np, td_np = hard_columns(HARD_COLUMNS)
+    tail_np = tail_columns(TAIL_COLUMNS)
     for dtype in (torch.float64, torch.float32):
         dname = str(dtype).split('.')[-1]
         tab = tab64 if dtype == torch.float64 else tab32
@@ -245,11 +306,21 @@ def main():
                 for x in (p_np, t_np, td_np)]
         args = kernel_args(*cols, tab)
         got = fused.cape_cin_kernel(*args)
+        got_p, prof = fused.cape_cin_kernel(*args, with_profile=True)
         torch.cuda.synchronize()
-        want = fused._column_outputs(*args)
+        want, want_prof = fused._column_outputs(*args, with_profile=True)
         errs[dname] = compare(f'kernel/{dname}/',
                               dict(zip(fused.OUTPUTS, got)),
                               dict(zip(fused.OUTPUTS, want)), dname)
+        if not torch.equal(got.nan_to_num(7.0), got_p.nan_to_num(7.0)):
+            raise AssertionError(f'kernel/{dname}: outputs differ with and '
+                                 f'without the profile tracks')
+        prof_err = compare(f'kernel/{dname}/profile/',
+                           dict(zip(fused.PROFILE, prof)),
+                           dict(zip(fused.PROFILE, want_prof)), dname)
+        li = diag.lifted_index(dict(zip(fused.PROFILE, prof)))
+        li_err = compare(f'kernel/{dname}/profile LI/', li['lifted_index'],
+                         got[fused.OUTPUTS.index('lifted_index')], dname)
         gp = torch.tensor([[959., 779.2, 751.3, 724.3, 700., 269.]],
                           dtype=dtype, device=dev)
         gt = torch.tensor([[22.2, 14.6, 12., 9.4, 7., -38.]], dtype=dtype,
@@ -263,42 +334,82 @@ def main():
             raise AssertionError(f'golden sounding {dname}: cape {cape:.3f}, '
                                  f'cin {cin:.3f}')
         log(f'[4 kernel {dname}] {args[0].shape[0]} columns x {LEVELS} vs '
-            f'plain twin: max |diff| {errs[dname]:.3g}; golden cape '
-            f'{cape:.3f} cin {cin:.3f}')
+            f'plain twin: max |diff| {errs[dname]:.3g}; profile tracks '
+            f'{prof_err:.3g}, LI from them vs in-kernel LI {li_err:.3g}; '
+            f'golden cape {cape:.3f} cin {cin:.3f}')
 
-    # Kernel and twin timed at the main path's shape, in turns.
+        tail = [torch.as_tensor(x, dtype=dtype, device=dev) for x in tail_np]
+        got = diag.diag_kernel(*tail)
+        torch.cuda.synchronize()
+        tail_errs[dname] = compare(
+            f'tail/{dname}/', dict(zip(diag.DIAG_OUTPUTS, got)),
+            dict(zip(diag.DIAG_OUTPUTS, diag._diag_body(*tail))), dname)
+        log(f'[4 tail {dname}] {TAIL_COLUMNS} hard columns x {LEVELS} vs '
+            f'plain twin: max |diff| {tail_errs[dname]:.3g}')
+
+    # Kernels and twins timed at the main path's shape, in turns.
     dat_np, td_main = synthetic(MAIN_COLUMNS)
-    p, t = (torch.as_tensor(dat_np[k], device=dev)
-            for k in ('pressure', 'temperature'))
+    p, t, h = (torch.as_tensor(dat_np[k], device=dev)
+               for k in ('pressure', 'temperature', 'height_asl'))
     td = torch.as_tensor(td_main, device=dev)
     margs = fused.prepass(p, p[:, 0], t[:, 0], td[:, 0], tab32)
     margs = (p, t, td, *margs)
-    plain_a = cuda_ms(lambda: fused._column_outputs(*margs), 3)
-    kern_a = cuda_ms(lambda: fused.cape_cin_kernel(*margs), 10)
-    kern_b = cuda_ms(lambda: fused.cape_cin_kernel(*margs), 10)
-    plain_b = cuda_ms(lambda: fused._column_outputs(*margs), 3)
+    # The timed outputs of each side are held against each other: every
+    # block of the full grid, its ragged edge included.
+    plain_a, want = cuda_ms(lambda: fused._column_outputs(*margs), 3)
+    kern_a, got = cuda_ms(lambda: fused.cape_cin_kernel(*margs), 10)
+    prof_ms, _ = cuda_ms(lambda: fused.cape_cin_kernel(*margs,
+                                                       with_profile=True), 10)
+    kern_b, _ = cuda_ms(lambda: fused.cape_cin_kernel(*margs), 10)
+    plain_b, _ = cuda_ms(lambda: fused._column_outputs(*margs), 3)
     kernel_ms, plain_ms = (kern_a + kern_b) / 2, (plain_a + plain_b) / 2
+    full_err = compare('kernel/main shape/', dict(zip(fused.OUTPUTS, got)),
+                       dict(zip(fused.OUTPUTS, want)), 'float32')
     log(f'[4 timing] {MAIN_COLUMNS} x {LEVELS} float32: kernel '
-        f'{kern_a:.3f}/{kern_b:.3f} ms, plain twin {plain_a:.3f}/'
-        f'{plain_b:.3f} ms ({smi})')
-    del margs
+        f'{kern_a:.3f}/{kern_b:.3f} ms ({prof_ms:.3f} ms with the profile '
+        f'tracks), plain twin {plain_a:.3f}/{plain_b:.3f} ms ({smi}); '
+        f'kernel vs twin there within the float32 budget, max |diff| '
+        f'{full_err:.3g}')
+    del margs, got, want
+    targs = (p, t, td, h)
+    tplain_a, want = cuda_ms(lambda: diag._diag_body(*targs), 3)
+    tkern_a, got = cuda_ms(lambda: diag.diag_kernel(*targs), 10)
+    tkern_b, _ = cuda_ms(lambda: diag.diag_kernel(*targs), 10)
+    tplain_b, _ = cuda_ms(lambda: diag._diag_body(*targs), 3)
+    tail_ms, tail_plain_ms = (tkern_a + tkern_b) / 2, (tplain_a + tplain_b) / 2
+    full_err = compare('tail/main shape/', dict(zip(diag.DIAG_OUTPUTS, got)),
+                       dict(zip(diag.DIAG_OUTPUTS, want)), 'float32')
+    log(f'[4 timing] tail {MAIN_COLUMNS} x {LEVELS} float32: kernel '
+        f'{tkern_a:.3f}/{tkern_b:.3f} ms, plain twin {tplain_a:.3f}/'
+        f'{tplain_b:.3f} ms ({smi}); kernel vs twin there within the '
+        f'float32 budget, max |diff| {full_err:.3g}')
+    del got, want
 
-    # 5. The main path: both entry points, float32, full size.
+    # 5. The main path, float32, full size: every entry point, each driven
+    # with the launch counts set to 0 just before it and read just after.
     dat = {k: torch.as_tensor(v, device=dev) for k, v in dat_np.items()}
-    fused.cape_cin_kernel.launches = 0
-    surf_res, surf_sol = xt.fused_surface_cape_cin(p, t, td, tables=tab32,
-                                                  with_lifted_index=True)
-    torch.cuda.synchronize()
-    surf_launches = fused.cape_cin_kernel.launches
-    pipe = xt.conv_properties_fused(dat, tables=tab32)
-    torch.cuda.synchronize()
-    launches = fused.cape_cin_kernel.launches
-    if surf_launches != 1 or launches - surf_launches != 3:
-        raise AssertionError(f'kernel launches: surface {surf_launches} '
-                             f'(want 1), pipeline {launches - surf_launches} '
-                             f'(want 3)')
-    surface = {**surf_res, **surf_sol}
-    for name, out in (('surface', surface), ('pipeline', pipe)):
+    paths = {
+        'surface': (lambda: xt.fused_surface_cape_cin(
+            p, t, td, tables=tab32, with_lifted_index=True), (1, 0)),
+        'pipeline': (lambda: xt.conv_properties_fused(dat, tables=tab32),
+                     (3, 1)),
+        'reduced': (lambda: xt.min_conv_properties_fused(dat, tables=tab32),
+                    (1, 1)),
+    }
+    outs, launches = {}, {'fused_cape_cin': 0, 'diag_tail': 0}
+    for name, (run, want_counts) in paths.items():
+        fused.cape_cin_kernel.launches = diag.diag_kernel.launches = 0
+        out = run()
+        torch.cuda.synchronize()
+        counts = (fused.cape_cin_kernel.launches, diag.diag_kernel.launches)
+        if counts != want_counts:
+            raise AssertionError(f'{name}: (solve, tail) launches {counts}, '
+                                 f'want {want_counts}')
+        launches['fused_cape_cin'] += counts[0]
+        launches['diag_tail'] += counts[1]
+        outs[name] = {**out[0], **out[1]} if name == 'surface' else out
+    outs['proxies'] = xt.storm_proxies(outs['pipeline'])
+    for name, out in outs.items():
         for k, v in out.items():
             if v.shape != (MAIN_COLUMNS,) or v.device != p.device or (
                     v.dtype not in (torch.float32, torch.bool)):
@@ -308,13 +419,18 @@ def main():
     # The subsample through the plain path on the CPU.
     sub = torch.arange(0, MAIN_COLUMNS, MAIN_COLUMNS // CHECK_COLUMNS)
     tab_cpu = xt.AdiabatTables(tab32.coeffs.cpu())
+    dat_cpu = {k: v[sub].cpu() for k, v in dat.items()}
     ref_res, ref_sol = xt.fused_surface_cape_cin(
         p[sub].cpu(), t[sub].cpu(), td[sub].cpu(), tables=tab_cpu,
         with_lifted_index=True)
-    ref_pipe = xt.conv_properties_fused(
-        {k: v[sub].cpu() for k, v in dat.items()}, tables=tab_cpu)
-    for name, out, ref in (('surface', surface, {**ref_res, **ref_sol}),
-                           ('pipeline', pipe, ref_pipe)):
+    refs = {
+        'surface': {**ref_res, **ref_sol},
+        'pipeline': xt.conv_properties_fused(dat_cpu, tables=tab_cpu),
+        'reduced': xt.min_conv_properties_fused(dat_cpu, tables=tab_cpu),
+    }
+    refs['proxies'] = xt.storm_proxies(refs['pipeline'])
+    for name, ref in refs.items():
+        out = outs[name]
         if set(out) != set(ref):
             raise AssertionError(f'{name}: outputs {sorted(out)} vs '
                                  f'{sorted(ref)}')
@@ -327,32 +443,41 @@ def main():
                                          f'values not finite where the '
                                          f'plain path is')
         compare(f'{name}/', {k: out[k][sub] for k in ref}, ref, 'float32')
+    pipe = outs['pipeline']
     n_cape = int(torch.isfinite(pipe['mu_cape']).sum())
-    log(f'[5 main path] surface + pipeline at {MAIN_COLUMNS} x {LEVELS} '
-        f'float32: kernel launches 1 + 3; {CHECK_COLUMNS} columns within '
-        f'the float32 budget of the CPU plain path; mu_cape finite in '
-        f'{n_cape} columns, mean {pipe["mu_cape"].nanmean().item():.2f} '
-        f'J/kg')
+    log(f'[5 main path] surface, pipeline, reduced pipeline and storm '
+        f'proxies at {MAIN_COLUMNS} x {LEVELS} float32: (solve, tail) '
+        f'launches 1+0, 3+1, 1+1; '
+        f'{CHECK_COLUMNS} columns within the float32 budget of the CPU '
+        f'plain path; mu_cape finite in {n_cape} columns, mean '
+        f'{pipe["mu_cape"].nanmean().item():.2f} J/kg')
 
-    surf_s = wall_median(lambda: xt.fused_surface_cape_cin(
-        p, t, td, tables=tab32, with_lifted_index=True), 5)
-    pipe_s = wall_median(lambda: xt.conv_properties_fused(dat, tables=tab32),
-                         5)
-    log(f'[5 rate] fused_surface_cape_cin {MAIN_COLUMNS / surf_s:.4g} '
-        f'columns/s ({surf_s * 1e3:.2f} ms), conv_properties_fused '
-        f'{MAIN_COLUMNS / pipe_s:.4g} columns/s ({pipe_s * 1e3:.2f} ms), '
-        f'float32, {smi}')
+    rates = {name: MAIN_COLUMNS / wall_median(run, 5)
+             for name, (run, _) in paths.items()}
+    log('[5 rate] ' + ', '.join(
+        f'{name} {rate:.4g} columns/s ({MAIN_COLUMNS / rate * 1e3:.2f} ms)'
+        for name, rate in rates.items()) + f', float32, {smi}')
 
     record = {'kernels': [{
         'name': 'fused_cape_cin',
         'route': 'cuda',
         'source': 'xarray_parcel_tpu_torch/csrc/fused_cape.cu',
         'replaces': 'xarray_parcel_tpu/fused.py:159',
-        'launches': launches,
+        'launches': launches['fused_cape_cin'],
         'max_abs_err': errs['float64'],
         'max_abs_err_float32': errs['float32'],
         'ms': kernel_ms,
         'plain_ms': plain_ms,
+    }, {
+        'name': 'diag_tail',
+        'route': 'cuda',
+        'source': 'xarray_parcel_tpu_torch/csrc/diag_tail.cu',
+        'replaces': 'benchmarks/diag_kernel_ab.py:57',
+        'launches': launches['diag_tail'],
+        'max_abs_err': tail_errs['float64'],
+        'max_abs_err_float32': tail_errs['float32'],
+        'ms': tail_ms,
+        'plain_ms': tail_plain_ms,
     }]}
     log(json.dumps(record))
     log(json.dumps({'ok': True, 'device': {

@@ -3,7 +3,8 @@
 The JAX side runs its kernel in Pallas interpret mode on the CPU, as
 ``tests/test_fused.py`` does; the port runs its plain twin (CPU tensors never
 reach the CUDA kernel).  All seven outputs must have identical NaN patterns
-and agree to atol 1e-6, the bound ``test_fused.py`` uses.
+and agree to atol 1e-6, the bound ``test_fused.py`` uses; the profile tracks
+(``with_profile``) to ``assert_same``'s 1e-9.
 """
 
 import jax.numpy as jnp
@@ -15,6 +16,7 @@ from xarray_parcel_tpu import adiabat as jad
 from xarray_parcel_tpu import fused as jfused
 from xarray_parcel_tpu import parcels as jparcels
 from xarray_parcel_tpu_torch import AdiabatTables
+from xarray_parcel_tpu_torch import diagnostics as tdiag
 from xarray_parcel_tpu_torch import fused as tfused
 
 from test_torch_ops import assert_same, to_torch
@@ -61,17 +63,17 @@ def split(res, sol):
     return {**res, **sol}
 
 
-def run_both(jax_tables, tables, p, t, td, parcel=None):
+def run_both(jax_tables, tables, p, t, td, parcel=None, **kw):
     jp = {} if parcel is None else {
         f'parcel_{k}': jnp.asarray(v) for k, v in parcel.items()}
     tp = {} if parcel is None else {
         f'parcel_{k}': to_torch(v) for k, v in parcel.items()}
+    kw.setdefault('with_lifted_index', True)
     want = split(*jfused.fused_cape_cin(
         jnp.asarray(p), jnp.asarray(t), jnp.asarray(td), tables=jax_tables,
-        with_lifted_index=True, **jp))
+        **jp, **kw))
     got = split(*tfused.fused_cape_cin(
-        to_torch(p), to_torch(t), to_torch(td), tables=tables,
-        with_lifted_index=True, **tp))
+        to_torch(p), to_torch(t), to_torch(td), tables=tables, **tp, **kw))
     return want, got
 
 
@@ -118,6 +120,45 @@ def test_masked_prefix_parcels_match_jax(jax_tables, tables, kind):
         assert_same(want[key], got[key], atol=ATOL, rtol=0, name=key)
 
 
+@pytest.fixture(scope='module')
+def profiles(jax_tables, tables):
+    """Both solves with their profile tracks, for the surface parcel and
+    the most-unstable one (NaN-prefixed columns)."""
+    p, t, td = grid(B=40, seed=9)
+    out = {'surface': run_both(jax_tables, tables, p, t, td,
+                               with_lifted_index=False, with_profile=True)}
+    fields, parcel = prepped('most_unstable', p, t, td)
+    out['most_unstable'] = run_both(jax_tables, tables, *fields,
+                                    parcel=parcel, with_lifted_index=False,
+                                    with_profile=True)
+    return out
+
+
+@pytest.mark.parametrize('kind', ['surface', 'most_unstable'])
+@pytest.mark.parametrize('track', tfused.PROFILE)
+def test_profile_tracks_match_jax(profiles, kind, track):
+    want, got = profiles[kind]
+    assert 'lifted_index' not in got
+    assert got['profile'][track].shape == (40, 41)
+    assert_same(want['profile'][track], got['profile'][track],
+                name=f'{kind}/{track}')
+
+
+def test_profile_run_keeps_the_solve(profiles, jax_tables, tables):
+    """With the profile tracks on, the scalar outputs are the solve's own,
+    and the LI interpolated from the tracks is the in-kernel LI."""
+    _, got = profiles['surface']
+    p, t, td = grid(B=40, seed=9)
+    _, plain = run_both(jax_tables, tables, p, t, td)
+    for key in KEYS[:2] + KEYS[3:]:
+        torch.testing.assert_close(got[key], plain[key], equal_nan=True,
+                                   rtol=0, atol=0)
+    li = tdiag.lifted_index(got['profile'])['lifted_index']
+    assert_same(plain['lifted_index'].numpy(), li)
+    prof = got['profile']['pressure']
+    assert torch.isnan(prof[19]).all()                  # all-NaN column
+
+
 def test_golden_sounding(jax_tables, tables):
     # The reference's golden surface-parcel sounding: cape 230.20,
     # cin -58.07 (tests/test_fused.py::test_fused_golden).
@@ -158,6 +199,9 @@ def test_wrapper_runs_the_twin_only_for_cpu_tensors(tables):
     before = tfused.cape_cin_kernel.launches
     out = tfused.cape_cin_kernel(p, t, td, row, scalars, k0)
     assert out.shape == (len(tfused.OUTPUTS), 24)
+    out, prof = tfused.cape_cin_kernel(p, t, td, row, scalars, k0,
+                                       with_profile=True)
+    assert prof.shape == (len(tfused.PROFILE), 24, p.shape[1] + 1)
     assert tfused.cape_cin_kernel.launches == before   # no kernel launched
     meta = [x.to('meta') for x in (p, t, td, row, scalars, k0)]
     with pytest.raises(ValueError, match='no CAPE/CIN kernel'):

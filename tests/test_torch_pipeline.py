@@ -1,10 +1,14 @@
-"""The port's ``conv_properties_fused`` slice against the JAX package.
+"""The port's fused pipelines and storm proxies against the JAX package.
 
-Holds the parcel preps and diagnostics to their JAX counterparts, the whole
-pipeline to JAX's ``conv_properties_fused`` (Pallas interpret mode) at
-atol 1e-6 of each output's scale, and the port's variables to the committed
-regression archive at the archive test's own tolerance.  Also checks that
-the port imports with JAX blocked.
+Holds the parcel preps and diagnostics to their JAX counterparts; the
+pipelines -- ``conv_properties_fused`` and ``min_conv_properties_fused`` --
+to JAX's (Pallas interpret mode; the full one with the lifted index from the
+solve and, ``in_kernel_li=False``, from its profile tracks) at atol 1e-6 of
+each output's scale, and the storm
+proxies of each package's pipeline output to each other; and the port's
+variables, storm proxies and reduced-pipeline (``min.*``) variables to the
+committed regression archive at the archive test's own tolerance.  Also
+checks that the port imports with JAX blocked.
 """
 
 import os
@@ -38,6 +42,14 @@ OUTPUTS = sorted([
     'mixed_100_dci', 'mixed_50_dci', 'lapse_rate_700_500', 'temp_500',
     'freezing_level', 'melting_level', 'shear_u', 'shear_v',
     'shear_magnitude', 'positive_shear'])
+MIN_OUTPUTS = sorted([
+    'mixed_100_cape', 'mixed_100_cin', 'mixed_100_lifted_index',
+    'lapse_rate_700_500', 'temp_500', 'freezing_level', 'melting_level',
+    'shear_u', 'shear_v', 'shear_magnitude', 'positive_shear'])
+PROXIES = sorted([
+    'proxy_Craven2004', 'proxy_Kunz2007', 'proxy_Trapp2007',
+    'proxy_Marsh2009', 'proxy_Allen2011', 'proxy_Allen2014',
+    'proxy_Eccel2012', 'proxy_Mohr2013', 'ship', 'proxy_SHIP_0.1'])
 
 
 @pytest.fixture(scope='module')
@@ -59,28 +71,80 @@ def grid():
     return dat
 
 
-@pytest.fixture(scope='module')
-def pipelines(jax_tables, tables):
+def run_both(name, jax_tables, tables, **jax_kw):
+    """JAX's (with ``jax_kw``) and the port's pipeline ``name`` on
+    :func:`grid`."""
     dat = grid()
-    want = jpipeline.conv_properties_fused(
-        {k: jnp.asarray(v) for k, v in dat.items()}, tables=jax_tables)
-    got = tpipeline.conv_properties_fused(
+    want = getattr(jpipeline, name)(
+        {k: jnp.asarray(v) for k, v in dat.items()}, tables=jax_tables,
+        **jax_kw)
+    got = getattr(tpipeline, name)(
         {k: to_torch(v) for k, v in dat.items()}, tables=tables)
     return {k: np.asarray(v) for k, v in want.items()}, got
 
 
-def test_pipeline_variable_set(pipelines):
-    want, got = pipelines
-    assert set(got) == set(want) == set(OUTPUTS)
-
-
-@pytest.mark.parametrize('key', OUTPUTS)
-def test_pipeline_matches_jax(pipelines, key):
-    want, got = pipelines
+def assert_pipeline_key(want, got, key):
     a, b = want[key], got[key]
     assert b.shape == (4, 5)
     scale = max(1.0, float(np.nanmax(np.abs(a)))) if a.dtype != bool else 1
     assert_same(a, b, atol=1e-6 * scale, rtol=0, name=key)
+
+
+@pytest.fixture(scope='module')
+def pipelines(jax_tables, tables):
+    return run_both('conv_properties_fused', jax_tables, tables)
+
+
+@pytest.fixture(scope='module')
+def profile_li(jax_tables, tables):
+    """The port's full pipeline against JAX's with the lifted index from
+    the profile tracks: the two LI routes agree."""
+    return run_both('conv_properties_fused', jax_tables, tables,
+                    in_kernel_li=False)
+
+
+@pytest.fixture(scope='module')
+def reduced(jax_tables, tables):
+    return run_both('min_conv_properties_fused', jax_tables, tables)
+
+
+def test_pipeline_variable_set(pipelines, profile_li, reduced):
+    for (want, got), keys in ((pipelines, OUTPUTS), (profile_li, OUTPUTS),
+                              (reduced, MIN_OUTPUTS)):
+        assert set(got) == set(want) == set(keys)
+
+
+@pytest.mark.parametrize('key', OUTPUTS)
+def test_pipeline_matches_jax(pipelines, key):
+    assert_pipeline_key(*pipelines, key)
+
+
+@pytest.mark.parametrize('key', OUTPUTS)
+def test_profile_li_pipeline_matches_jax(profile_li, key):
+    assert_pipeline_key(*profile_li, key)
+
+
+@pytest.mark.parametrize('key', MIN_OUTPUTS)
+def test_reduced_pipeline_matches_jax(reduced, key):
+    assert_pipeline_key(*reduced, key)
+
+
+def test_reduced_pipeline_has_no_valid_mask(reduced, pipelines):
+    """The NaN-specific-humidity column (2, 3) keeps its shear and its
+    temperature-only diagnostics, where the full pipeline masks them."""
+    _, got = reduced
+    _, full = pipelines
+    assert torch.isfinite(got['shear_u'][2, 3])
+    assert torch.isfinite(got['freezing_level'][2, 3])
+    assert torch.isnan(full['shear_u'][2, 3])
+
+
+@pytest.mark.parametrize('key', PROXIES)
+def test_storm_proxies_of_the_pipeline_match_jax(pipelines, key):
+    want, got = pipelines
+    a = jpipeline.storm_proxies({k: jnp.asarray(v) for k, v in want.items()})
+    b = tpipeline.storm_proxies(got)
+    assert_same(np.asarray(a[key]), b[key], atol=1e-6, rtol=1e-9, name=key)
 
 
 def test_off_mask_outputs(pipelines):
@@ -98,12 +162,22 @@ def archive(tables):
     with np.load(ARCHIVE) as f:
         inputs = {k[3:]: f[k] for k in f.files if k.startswith('in_')}
         expect = {k[4:]: f[k] for k in f.files if k.startswith('out_')}
-    got = tpipeline.conv_properties_fused(
-        {k: to_torch(v) for k, v in inputs.items()}, tables=tables)
+    dat = {k: to_torch(v) for k, v in inputs.items()}
+    got = tpipeline.conv_properties_fused(dat, tables=tables)
+    got.update(tpipeline.storm_proxies(got))
+    got.update({f'min.{k}': v for k, v in
+                tpipeline.min_conv_properties_fused(dat,
+                                                    tables=tables).items()})
     return expect, got
 
 
-@pytest.mark.parametrize('key', OUTPUTS)
+def test_regression_archive_variable_set(archive):
+    expect, got = archive
+    assert set(got) == set(expect)
+
+
+@pytest.mark.parametrize('key', OUTPUTS + PROXIES +
+                         [f'min.{k}' for k in MIN_OUTPUTS])
 def test_regression_archive(archive, key):
     """The archive test's own bounds: identical NaN patterns, atol 1e-4 of
     the variable's scale, rtol 1e-6."""

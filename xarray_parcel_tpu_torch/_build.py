@@ -1,10 +1,12 @@
 """Build and load the port's CUDA kernels.
 
-At first use, ``nvcc`` compiles every ``csrc/*.cu`` of the package into one
-shared library with a plain C interface for Hopper (``sm_90a``), which
+At first use, ``nvcc`` compiles every ``csrc/*.cu`` of the package for
+Hopper (``sm_90a``), one process per source, all started together, and
+links the objects into one shared library with a plain C interface, which
 ``ctypes`` loads.  The library lands in ``build/xarray_parcel_tpu_torch/``
-beside the package, named by a hash of the sources and flags, so an edited
-source builds anew and an unchanged one loads the existing library.
+beside the package, named by a hash of the sources, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source or header builds anew
+and an unchanged tree loads the existing library.
 
 There is no fallback: a missing ``nvcc`` or a failed build raises.  Fast
 math stays off, because the CAPE/CIN solve's selections depend on IEEE
@@ -20,6 +22,8 @@ import subprocess
 import threading
 import time
 
+import torch
+
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, 'csrc')
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), 'build',
@@ -31,7 +35,7 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), 'build',
 # 786,432 columns; without it the selections agree exactly, at no measured
 # cost in kernel time on the H100.
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-              '-O3', '-fmad=false', '-shared', '-Xcompiler', '-fPIC')
+              '-O3', '-fmad=false', '-Xcompiler', '-fPIC')
 
 _lock = threading.Lock()
 _loaded = {}
@@ -40,6 +44,11 @@ _loaded = {}
 def sources():
     """The kernel sources, in a stable order."""
     return sorted(glob.glob(os.path.join(CSRC, '*.cu')))
+
+
+def headers():
+    """The headers the sources share, in a stable order."""
+    return sorted(glob.glob(os.path.join(CSRC, '*.cuh')))
 
 
 def find_nvcc():
@@ -57,13 +66,28 @@ def find_nvcc():
 
 
 def library_path():
-    """Where the library for the current sources and flags lives."""
+    """Where the library for the current sources, headers and flags
+    lives."""
     h = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sources() + headers():
         h.update(os.path.basename(src).encode())
         with open(src, 'rb') as f:
             h.update(f.read())
     return os.path.join(BUILD_DIR, f'libxpt_kernels_{h.hexdigest()[:16]}.so')
+
+
+def _run_all(cmds):
+    """Run the commands concurrently; raise with the first failure's
+    output after all have ended.  Returns their combined output."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    outs = [proc.communicate()[0] for proc in procs]
+    for cmd, proc, out in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(f'nvcc failed ({proc.returncode}):\n'
+                               f'{" ".join(cmd)}\n{out}')
+    return ''.join(outs)
 
 
 def build(verbose=False):
@@ -75,17 +99,23 @@ def build(verbose=False):
     if os.path.exists(path):
         return path, 0.0
     os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = find_nvcc()
     tmp = f'{path}.{os.getpid()}.tmp'
-    cmd = [find_nvcc(), *NVCC_FLAGS, *(['-Xptxas', '-v'] if verbose else []),
-           '-o', tmp, *sources()]
+    objs = [f'{tmp}.{os.path.basename(src)}.o' for src in sources()]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    try:
+        report = _run_all([[nvcc, *NVCC_FLAGS,
+                            *(['-Xptxas', '-v'] if verbose else []),
+                            '-c', '-o', obj, src]
+                           for src, obj in zip(sources(), objs)])
+        _run_all([[nvcc, '-shared', '-o', tmp, *objs]])
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f'nvcc failed ({proc.returncode}):\n'
-                           f'{" ".join(cmd)}\n{proc.stdout}{proc.stderr}')
     if verbose:
-        print(proc.stdout + proc.stderr, end='', flush=True)
+        print(report, end='', flush=True)
     os.replace(tmp, path)       # atomic: concurrent builds race safely
     return path, seconds
 
@@ -97,3 +127,21 @@ def load_library():
             path, _ = build()
             _loaded['lib'] = ctypes.CDLL(path)
         return _loaded['lib']
+
+
+def launch(name, device, pointers, batch, *widths):
+    """Call the library's launcher ``name`` on ``device``'s current stream.
+
+    Every launcher has the C signature ``int name(void *..., int64_t B,
+    int..., void *stream)``: ``pointers`` are the tensors' data pointers,
+    ``batch`` the column count B and ``widths`` the int sizes that follow
+    it.  Raises if the launch reports a CUDA error."""
+    fn = getattr(load_library(), name)
+    fn.argtypes = ([ctypes.c_void_p] * len(pointers) + [ctypes.c_int64] +
+                   [ctypes.c_int] * len(widths) + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(*pointers, batch, *widths, stream)
+    if err != 0:
+        raise RuntimeError(f'{name} kernel launch failed: CUDA error {err}')

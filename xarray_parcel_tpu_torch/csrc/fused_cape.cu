@@ -34,9 +34,12 @@
 // exp/log/divide, so no multiply-add may be fused into one rounding.
 //
 // Output rows, each (B,): cape, cin, lfc_p, lfc_t, el_p, el_t, lifted index.
+// With a non-null profile pointer, pass B also stores the spliced column's
+// pressure, parcel temperature and environment temperature tracks,
+// (3, B, L+1) (fused._column_program with_profile); with a null one the
+// kernel is instantiated without those stores.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "column.cuh"
 
 namespace {
 
@@ -61,37 +64,6 @@ constexpr double kSegShift1 = 6.126970736883871;
 constexpr double kSegShift2 = 7.949683624226738;
 
 constexpr int kScalars = 6;   // lcl_p, lcl_t, lcl_vt, w0, t0, p0
-
-__device__ __forceinline__ float dexp(float x) { return expf(x); }
-__device__ __forceinline__ double dexp(double x) { return exp(x); }
-__device__ __forceinline__ float dlog(float x) { return logf(x); }
-__device__ __forceinline__ double dlog(double x) { return log(x); }
-__device__ __forceinline__ float dabs(float x) { return fabsf(x); }
-__device__ __forceinline__ double dabs(double x) { return fabs(x); }
-
-template <typename T> struct Num;
-template <> struct Num<float> {
-  static __device__ __forceinline__ float nan() {
-    return __int_as_float(0x7fffffff);
-  }
-  static __device__ __forceinline__ float inf() {
-    return __int_as_float(0x7f800000);
-  }
-  static constexpr double eps = 1.1920928955078125e-07;
-};
-template <> struct Num<double> {
-  static __device__ __forceinline__ double nan() {
-    return __longlong_as_double(0x7ff8000000000000LL);
-  }
-  static __device__ __forceinline__ double inf() {
-    return __longlong_as_double(0x7ff0000000000000LL);
-  }
-  static constexpr double eps = 2.220446049250313e-16;
-};
-
-template <typename T> __device__ __forceinline__ bool isnan_(T x) {
-  return x != x;
-}
 
 // --- thermodynamics (same evaluation order as thermo.py) -----------------
 
@@ -208,11 +180,6 @@ template <typename T> struct Column {
 // a and b (ops/intersect.py): log-pressure ix and value iy (NaN where there
 // is none), and the direction from the sign at b.  A NaN sign counts as a
 // crossing with NaN coordinates, as in the reference.
-template <typename T> __device__ __forceinline__ T nan_sign(T d) {
-  return d > T(0) ? T(1) : (d < T(0) ? T(-1) : (d == T(0) ? T(0)
-                                                         : Num<T>::nan()));
-}
-
 template <typename T>
 __device__ __forceinline__ void crossing(const Slot<T>& a, const Slot<T>& b,
                                          T& ix, T& iy, bool& inc,
@@ -234,23 +201,6 @@ __device__ __forceinline__ void crossing(const Slot<T>& a, const Slot<T>& b,
   dec = cross && s1 < T(0);
 }
 
-// Duplicate-aware interpolation from the masked sums at the two anchors
-// (ops/interp.py): nanmean before/after, passthrough when equal.
-template <typename T>
-__device__ __forceinline__ T interp_sums(T sb, int nb, T sa, int na,
-                                         T frac) {
-  const T xb = nb > 0 ? sb / T(nb) : Num<T>::nan();
-  const T xa = na > 0 ? sa / T(na) : Num<T>::nan();
-  return xb == xa ? xb : xb + (xa - xb) * frac;
-}
-
-template <typename T>
-__device__ __forceinline__ T anchor_frac(T at, T before, T after) {
-  T span = after - before;
-  if (!(span != T(0) && span == span)) span = T(1);
-  return (at - before) / span;
-}
-
 // Running nanmax of y over the entries whose x equals the running
 // extremum of x: reset on a new extremum, fold in ties.
 template <typename T>
@@ -260,17 +210,13 @@ __device__ __forceinline__ void tie_max(T y, T& best_y, bool reset) {
   else if (y > best_y) best_y = y;
 }
 
-template <typename T>
-__device__ __forceinline__ T or_nan(T v, T sentinel) {
-  return v == sentinel ? Num<T>::nan() : v;
-}
-
-template <typename T>
+template <typename T, bool kProfile>
 __global__ void __launch_bounds__(128)
 fused_cape_cin_kernel(const T* __restrict__ p, const T* __restrict__ t,
                       const T* __restrict__ td, const T* __restrict__ row,
                       const T* __restrict__ sc, const int* __restrict__ k0s,
-                      T* __restrict__ out, int64_t B, int L, int K) {
+                      T* __restrict__ out, T* __restrict__ prof, int64_t B,
+                      int L, int K) {
   const int64_t col = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (col >= B) return;
   const T nan = Num<T>::nan(), inf = Num<T>::inf();
@@ -296,9 +242,7 @@ fused_cape_cin_kernel(const T* __restrict__ p, const T* __restrict__ t,
 
   // --- pass A: source levels ---------------------------------------------
   int idx = 0;
-  T cb = inf, ca = -inf;              // LCL anchors (at = log lcl_p)
-  T sbt = 0, sbd = 0, sat = 0, sad = 0;
-  int nbt = 0, nbd = 0, nat = 0, nad = 0;
+  Anchors<T> lcl(llcl);               // t and td at the LCL
   T cb5 = inf, ca5 = -inf;            // 500 hPa anchors of the splice
   T lpmin = inf;
   for (int i = 0; i < L; ++i) {
@@ -309,21 +253,7 @@ fused_cape_cin_kernel(const T* __restrict__ p, const T* __restrict__ t,
     if (lp < lpmin) lpmin = lp;
     if (lp >= l500 && lp < cb5) cb5 = lp;
     if (lp <= l500 && lp > ca5) ca5 = lp;
-    const T ti = c.t[i], tdi = c.td[i];
-    if (lp >= llcl) {
-      if (lp < cb) { cb = lp; sbt = sbd = T(0); nbt = nbd = 0; }
-      if (lp == cb) {
-        if (!isnan_(ti)) { sbt += ti; ++nbt; }
-        if (!isnan_(tdi)) { sbd += tdi; ++nbd; }
-      }
-    }
-    if (lp <= llcl) {
-      if (lp > ca) { ca = lp; sat = sad = T(0); nat = nad = 0; }
-      if (lp == ca) {
-        if (!isnan_(ti)) { sat += ti; ++nat; }
-        if (!isnan_(tdi)) { sad += tdi; ++nad; }
-      }
-    }
+    lcl.add(lp, c.t[i], c.td[i]);
   }
   if (c.flood) {
     cb5 = ca5 = lpmin = nan;
@@ -335,15 +265,9 @@ fused_cape_cin_kernel(const T* __restrict__ p, const T* __restrict__ t,
     ca5 = or_nan(ca5, -inf);
     lpmin = or_nan(lpmin, inf);
   }
-  cb = or_nan(cb, inf);
-  ca = or_nan(ca, -inf);
   c.idx = idx > c.k0 ? idx : c.k0;
-  {
-    const T frac = anchor_frac(llcl, cb, ca);
-    c.t_at = interp_sums(sbt, nbt, sat, nat, frac);
-    const T td_at = interp_sums(sbd, nbd, sad, nad, frac);
-    c.envvt_at = virt(c.t_at, mixing_ratio(c.t_at, td_at, c.lcl_p));
-  }
+  c.t_at = lcl.value(0);
+  c.envvt_at = virt(c.t_at, mixing_ratio(c.t_at, lcl.value(1), c.lcl_p));
 
   // --- pass B: spliced slots ----------------------------------------------
   const int k0 = c.k0;
@@ -356,6 +280,12 @@ fused_cape_cin_kernel(const T* __restrict__ p, const T* __restrict__ t,
   Slot<T> prev = c.slot(0);
   for (int j = 0; j <= L; ++j) {
     const Slot<T> cur = j == 0 ? prev : c.slot(j);
+    if (kProfile) {
+      const int64_t plane = B * (L + 1), at = col * (L + 1) + j;
+      prof[at] = cur.P;
+      prof[plane + at] = cur.TP;
+      prof[2 * plane + at] = cur.TE;
+    }
     if (j == k0) {
       // Ulp-scaled first-level equality (cape.lfc_el).
       const T a = cur.ET, b = cur.PT;
@@ -472,14 +402,19 @@ fused_cape_cin_kernel(const T* __restrict__ p, const T* __restrict__ t,
 
 template <typename T>
 int launch(const void* p, const void* t, const void* td, const void* row,
-           const void* sc, const void* k0, void* out, int64_t B, int L,
-           int K, void* stream) {
+           const void* sc, const void* k0, void* out, void* prof, int64_t B,
+           int L, int K, void* stream) {
   const int threads = 128;
-  const int64_t blocks = (B + threads - 1) / threads;
-  fused_cape_cin_kernel<T><<<(unsigned)blocks, threads, 0,
-                             (cudaStream_t)stream>>>(
-      (const T*)p, (const T*)t, (const T*)td, (const T*)row, (const T*)sc,
-      (const int*)k0, (T*)out, B, L, K);
+  const unsigned blocks = (unsigned)((B + threads - 1) / threads);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (prof)
+    fused_cape_cin_kernel<T, true><<<blocks, threads, 0, s>>>(
+        (const T*)p, (const T*)t, (const T*)td, (const T*)row, (const T*)sc,
+        (const int*)k0, (T*)out, (T*)prof, B, L, K);
+  else
+    fused_cape_cin_kernel<T, false><<<blocks, threads, 0, s>>>(
+        (const T*)p, (const T*)t, (const T*)td, (const T*)row, (const T*)sc,
+        (const int*)k0, (T*)out, nullptr, B, L, K);
   return (int)cudaGetLastError();
 }
 
@@ -487,17 +422,20 @@ int launch(const void* p, const void* t, const void* td, const void* row,
 
 extern "C" {
 
-// Launch on `stream`; returns cudaGetLastError() (0 on success).
+// Launch on `stream`; returns cudaGetLastError() (0 on success).  `prof`
+// may be null: then no profile tracks are stored.
 int fused_cape_cin_f32(const void* p, const void* t, const void* td,
                        const void* row, const void* sc, const void* k0,
-                       void* out, int64_t B, int L, int K, void* stream) {
-  return launch<float>(p, t, td, row, sc, k0, out, B, L, K, stream);
+                       void* out, void* prof, int64_t B, int L, int K,
+                       void* stream) {
+  return launch<float>(p, t, td, row, sc, k0, out, prof, B, L, K, stream);
 }
 
 int fused_cape_cin_f64(const void* p, const void* t, const void* td,
                        const void* row, const void* sc, const void* k0,
-                       void* out, int64_t B, int L, int K, void* stream) {
-  return launch<double>(p, t, td, row, sc, k0, out, B, L, K, stream);
+                       void* out, void* prof, int64_t B, int L, int K,
+                       void* stream) {
+  return launch<double>(p, t, td, row, sc, k0, out, prof, B, L, K, stream);
 }
 
 }  // extern "C"

@@ -5,7 +5,8 @@ temperature track (dry Poisson below the LCL, the blended spectral moist
 adiabat above it), parcel and environment virtual temperature, the LCL
 spliced in after the column's leading-NaN prefix, the parcel/environment
 crossing set in log p, LFC/EL under the USAF1990 rules, exact-area CAPE/CIN
-and the 500 hPa lifted index.
+and the 500 hPa lifted index; optionally the spliced column's pressure,
+parcel and environment temperature tracks (the profile).
 
 On a CUDA tensor the solve runs in the hand-written kernel
 ``csrc/fused_cape.cu`` (one thread per column); on a CPU tensor it runs in
@@ -14,14 +15,13 @@ The O(B) pre-pass (LCL fixed point, curve index, coefficient-row blend,
 first-valid level) is plain torch on either device.
 """
 
-import ctypes
 import math
 
 import torch
 
 from . import adiabat, thermo
 from . import constants as c
-from ._build import load_library
+from ._build import launch
 from .adiabat import P_BOT, P_TOP, _eval_spectral
 from .cape import cape_cin_base, lfc_el
 from .lcl import lcl
@@ -31,17 +31,21 @@ from .ops import (find_intersections, first_valid_index, insert_level,
 #: Order of the kernel's (and the twin's) output rows.
 OUTPUTS = ('cape', 'cin', 'lfc_pressure', 'lfc_temperature', 'el_pressure',
            'el_temperature', 'lifted_index')
+#: Order of the optional profile tracks, each (B, L+1).
+PROFILE = ('pressure', 'temperature', 'environment_temperature')
 #: Order of the per-column scalar inputs.
 SCALARS = ('lcl_pressure', 'lcl_temperature', 'lcl_virtual_temperature',
            'mixing_ratio', 'temperature', 'pressure')
 
 
-def _column_program(p, t, td, row, lcl_p, lcl_t, lcl_vt, w0, t0, p0, k0):
+def _column_program(p, t, td, row, lcl_p, lcl_t, lcl_vt, w0, t0, p0, k0,
+                    with_profile=False):
     """The per-column CAPE/CIN solve on (B, L) tensors (the kernel's plain
     twin).  ``row``: (B, K) blended coefficient rows (NaN row = parcel
     outside the adiabat family); the rest are (B,) per-column scalars,
     ``k0`` the integer first-valid level.  Returns a dict of (B,) outputs
-    named as in :data:`OUTPUTS`."""
+    named as in :data:`OUTPUTS`; with ``with_profile`` also ``profile``,
+    the (B, L+1) spliced tracks in :data:`PROFILE` order."""
     lcl_pb = lcl_p[..., None]
 
     # Tracks are computed on safe finite dummies; NaN levels get NaN after.
@@ -96,38 +100,35 @@ def _column_program(p, t, td, row, lcl_p, lcl_t, lcl_vt, w0, t0, p0, k0):
     env500, par500 = interp_many((ins['etemp'], ins['ptemp']),
                                  ins['pressure'], 500.0, log=True,
                                  log_coords=ins_lp)
-    return {**res, **sol, 'lifted_index': env500 - par500}
+    out = {**res, **sol, 'lifted_index': env500 - par500}
+    if with_profile:
+        out['profile'] = (ins['pressure'], ins['ptemp'], ins['etemp'])
+    return out
 
 
-def _column_outputs(p, t, td, row, scalars, k0):
+def _column_outputs(p, t, td, row, scalars, k0, with_profile=False):
     """:func:`_column_program` on the kernel's packed arguments; returns
-    the (7, B) output block in :data:`OUTPUTS` order."""
-    out = _column_program(p, t, td, row, *scalars.unbind(-1), k0)
-    return torch.stack([out[k] for k in OUTPUTS])
+    the (7, B) output block in :data:`OUTPUTS` order, and with
+    ``with_profile`` also the (3, B, L+1) tracks in :data:`PROFILE`
+    order."""
+    out = _column_program(p, t, td, row, *scalars.unbind(-1), k0,
+                          with_profile=with_profile)
+    block = torch.stack([out[k] for k in OUTPUTS])
+    return (block, torch.stack(out['profile'])) if with_profile else block
 
 
-def _library():
-    """The kernel library, built at first use, with its C signatures."""
-    lib = load_library()
-    for name in ('fused_cape_cin_f32', 'fused_cape_cin_f64'):
-        fn = getattr(lib, name)
-        fn.argtypes = ([ctypes.c_void_p] * 7 +
-                       [ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-                        ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    return lib
-
-
-def cape_cin_kernel(p, t, td, row, scalars, k0):
+def cape_cin_kernel(p, t, td, row, scalars, k0, with_profile=False):
     """The per-column solve on packed arguments: p/t/td (B, L), row (B, K),
     scalars (B, 6) in :data:`SCALARS` order, all of one float dtype, and k0
-    (B,) int32.  Returns the (7, B) output block in :data:`OUTPUTS` order.
+    (B,) int32.  Returns the (7, B) output block in :data:`OUTPUTS` order,
+    and with ``with_profile`` also the (3, B, L+1) tracks in
+    :data:`PROFILE` order.
 
     CUDA tensors go to the hand-written kernel (``cape_cin_kernel.launches``
     counts each launch); CPU tensors go to the plain twin.
     """
     if p.device.type == 'cpu':
-        return _column_outputs(p, t, td, row, scalars, k0)
+        return _column_outputs(p, t, td, row, scalars, k0, with_profile)
     if p.device.type != 'cuda':
         raise ValueError(f'no CAPE/CIN kernel for device {p.device}')
     B, L = p.shape
@@ -148,20 +149,16 @@ def cape_cin_kernel(p, t, td, row, scalars, k0):
     floats = [x.contiguous() for x in floats]
     k0 = k0.contiguous()
     out = torch.empty((len(OUTPUTS), B), dtype=p.dtype, device=p.device)
-    if B == 0:
-        return out
-    lib = _library()
-    fn = (lib.fused_cape_cin_f32 if p.dtype == torch.float32
-          else lib.fused_cape_cin_f64)
-    with torch.cuda.device(p.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(*(x.data_ptr() for x in floats), k0.data_ptr(),
-                 out.data_ptr(), B, L, K, stream)
-    if err != 0:
-        raise RuntimeError(f'fused_cape_cin kernel launch failed: CUDA '
-                           f'error {err}')
-    cape_cin_kernel.launches += 1
-    return out
+    prof = (torch.empty((len(PROFILE), B, L + 1), dtype=p.dtype,
+                        device=p.device) if with_profile else None)
+    if B > 0:
+        suffix = 'f32' if p.dtype == torch.float32 else 'f64'
+        launch(f'fused_cape_cin_{suffix}', p.device,
+               [*(x.data_ptr() for x in floats), k0.data_ptr(),
+                out.data_ptr(), None if prof is None else prof.data_ptr()],
+               B, L, K)
+        cape_cin_kernel.launches += 1
+    return (out, prof) if with_profile else out
 
 
 cape_cin_kernel.launches = 0
@@ -184,14 +181,18 @@ def prepass(p, p0, t0, td0, tables):
 
 def fused_cape_cin(pressure, temperature, dewpoint, parcel_pressure=None,
                    parcel_temperature=None, parcel_dewpoint=None,
-                   tables=None, with_lifted_index=False):
+                   tables=None, with_lifted_index=False,
+                   with_profile=False):
     """CAPE/CIN, LFC/EL (and optionally the lifted index) for an arbitrary
     parcel, via the fused solve.
 
     Environment columns are (…, L) tensors; parcel state is (…) and
     defaults to the lowest level.  Returns (res, sol) dicts of tensors of
     the broadcast batch shape: ``res`` holds cape, cin (and
-    lifted_index), ``sol`` the LFC/EL pressures and temperatures.
+    lifted_index), ``sol`` the LFC/EL pressures and temperatures.  With
+    ``with_profile``, ``res['profile']`` holds the LCL-spliced column's
+    ``pressure``, parcel ``temperature`` and ``environment_temperature``,
+    each of shape batch + (L+1,).
     """
     p, t, td = pressure, temperature, dewpoint
     if tables is None:
@@ -215,11 +216,16 @@ def fused_cape_cin(pressure, temperature, dewpoint, parcel_pressure=None,
 
     row, scalars, k0 = prepass(p, p0, t0, td0, tables)
     out = cape_cin_kernel(p.contiguous(), t.contiguous(), td.contiguous(),
-                          row, scalars, k0)
+                          row, scalars, k0, with_profile)
+    if with_profile:
+        out, prof = out
     shaped = {k: v.reshape(batch_shape) for k, v in zip(OUTPUTS, out)}
     res = {'cape': shaped['cape'], 'cin': shaped['cin']}
     if with_lifted_index:
         res['lifted_index'] = shaped['lifted_index']
+    if with_profile:
+        res['profile'] = {k: v.reshape(batch_shape + (L + 1,))
+                          for k, v in zip(PROFILE, prof)}
     sol = {k: shaped[k] for k in ('lfc_pressure', 'lfc_temperature',
                                   'el_pressure', 'el_temperature')}
     return res, sol

@@ -1,11 +1,15 @@
-"""The fused convection-diagnostics pipeline.
+"""The fused convection-diagnostics pipelines and the storm proxies.
 
-Port of ``xarray_parcel_tpu.pipeline.conv_properties_fused`` on its
-production defaults (lifted index inside the solve, slot-write mixed
+Port of ``xarray_parcel_tpu.pipeline``'s ``conv_properties_fused``,
+``min_conv_properties_fused`` and ``storm_proxies`` (slot-write mixed
 layers).  Inputs are a dict of tensors with the reference's variable names:
 ``pressure``, ``temperature``, ``specific_humidity``, ``height_asl`` (…, L),
 ``surface_wind_u``/``surface_wind_v`` (…) and ``wind_u``/``wind_v``/
 ``wind_height_above_surface`` (…, Lw).
+
+On CUDA tensors each CAPE/CIN solve runs in the ``csrc/fused_cape.cu``
+kernel and the diagnostics tail (t850/td850, lapse rate and t500, freezing
+and melting levels) in the ``csrc/diag_tail.cu`` kernel, once per call.
 """
 
 import torch
@@ -13,12 +17,13 @@ import torch
 from . import diagnostics as diag
 from . import thermo
 from .fused import fused_cape_cin
-from .ops import interp_many
 from .parcels import (bridge_neighbors, conserved_fields,
                       from_most_unstable_parcel, mix_layer)
 
 
-def _solve(fields, parcel, tables):
+def _fused_solve(fields, parcel, tables):
+    """One fused CAPE/CIN solve, with the lifted index from inside the
+    solve, for an arbitrary parcel."""
     res, _ = fused_cape_cin(
         fields['pressure'], fields['temperature'], fields['dewpoint'],
         parcel_pressure=parcel['pressure'],
@@ -28,13 +33,21 @@ def _solve(fields, parcel, tables):
     return res
 
 
+def _shear(dat):
+    return diag.wind_shear(dat['surface_wind_u'], dat['surface_wind_v'],
+                           dat['wind_u'], dat['wind_v'],
+                           dat['wind_height_above_surface'],
+                           shear_height=6000.0)
+
+
 def conv_properties_fused(dat, ignore_nans=False, tables=None):
     """The full ~20-variable diagnostics set for every column: CAPE/CIN,
     lifted index and DCI of the most-unstable, mixed-100 and mixed-50
     parcels, the most-unstable mixing ratio, 700-500 hPa lapse rate, 500 hPa
     temperature, freezing/melting level heights and 0-6 km shear.
 
-    Three fused CAPE/CIN solves run per call.  Unless ``ignore_nans``,
+    Three fused CAPE/CIN solves and one diagnostics tail run per call; the
+    lifted index comes from inside each solve.  Unless ``ignore_nans``,
     every output is NaN (booleans False) in a column where any input level
     is NaN.
     """
@@ -46,28 +59,27 @@ def conv_properties_fused(dat, ignore_nans=False, tables=None):
               torch.isnan(t).any(-1) | torch.isnan(q).any(-1))
 
     mu_fields, mu_parcel = from_most_unstable_parcel(p, t, dew, depth=250.0)
-    mu = _solve(mu_fields, mu_parcel, tables)
+    mu = _fused_solve(mu_fields, mu_parcel, tables)
     cons = conserved_fields(p, t, dew)
     nbrs = bridge_neighbors(p, ~(torch.isnan(p) | torch.isnan(t) |
                                  torch.isnan(dew)))
     m100_fields, m100_parcel = mix_layer(p, t, dew, depth=100.0,
                                          conserved=cons, neighbors=nbrs)
-    m100 = _solve(m100_fields, m100_parcel, tables)
+    m100 = _fused_solve(m100_fields, m100_parcel, tables)
     m50_fields, m50_parcel = mix_layer(p, t, dew, depth=50.0,
                                        conserved=cons, neighbors=nbrs)
-    m50 = _solve(m50_fields, m50_parcel, tables)
+    m50 = _fused_solve(m50_fields, m50_parcel, tables)
 
     mu_mixing_ratio = thermo.mixing_ratio_from_specific_humidity(
         thermo.specific_humidity_from_dewpoint(mu_parcel['pressure'],
                                                mu_parcel['dewpoint']))
 
-    height = dat['height_asl']
-    anchors_850 = interp_many((t, dew), p, 850.0, log=True)
-    lapse, _, temp_500 = diag.lapse_rate(p, t, height, with_isobars=True)
+    t850, td850, lapse, temp_500, flh, mlh = diag.diag_fused(
+        p, t, dew, dat['height_asl'])
 
     def dci(li):
         return diag.deep_convective_index(p, t, dew, li,
-                                          anchors_850=anchors_850)['dci']
+                                          anchors_850=(t850, td850))['dci']
 
     out = {
         'mu_cape': mu['cape'], 'mu_cin': mu['cin'],
@@ -82,16 +94,85 @@ def conv_properties_fused(dat, ignore_nans=False, tables=None):
         'mixed_50_dci': dci(m50['lifted_index']),
         'lapse_rate_700_500': lapse,
         'temp_500': temp_500,
-        'freezing_level': diag.freezing_level_height(t, height),
-        'melting_level': diag.melting_level_height(p, t, dew, height)[0],
+        'freezing_level': flh,
+        'melting_level': mlh,
     }
-    out.update(diag.wind_shear(dat['surface_wind_u'], dat['surface_wind_v'],
-                               dat['wind_u'], dat['wind_v'],
-                               dat['wind_height_above_surface'],
-                               shear_height=6000.0))
+    out.update(_shear(dat))
 
     if not ignore_nans:
         for k, v in out.items():
             fill = False if v.dtype == torch.bool else torch.nan
             out[k] = torch.where(valid, v, fill)
+    return out
+
+
+def min_conv_properties_fused(dat, tables=None):
+    """The reduced diagnostics set: mixed-100 CAPE/CIN and lifted index,
+    700-500 hPa lapse rate, 500 hPa temperature, freezing/melting level
+    heights and 0-6 km shear.
+
+    One fused CAPE/CIN solve and one diagnostics tail run per call.  As in
+    the JAX package, there is no valid-column mask: NaN levels propagate
+    through each output's own NaN rules.
+    """
+    p = dat['pressure']
+    t = dat['temperature']
+    q = dat['specific_humidity']
+    dew = thermo.dewpoint_from_specific_humidity(p, t, q)
+
+    m100_fields, m100_parcel = mix_layer(p, t, dew, depth=100.0)
+    res = _fused_solve(m100_fields, m100_parcel, tables)
+    _, _, lapse, temp_500, flh, mlh = diag.diag_fused(p, t, dew,
+                                                      dat['height_asl'])
+    out = {'mixed_100_cape': res['cape'], 'mixed_100_cin': res['cin'],
+           'mixed_100_lifted_index': res['lifted_index'],
+           'lapse_rate_700_500': lapse, 'temp_500': temp_500,
+           'freezing_level': flh, 'melting_level': mlh}
+    out.update(_shear(dat))
+    return out
+
+
+#: The ``conv_properties_fused`` outputs that :func:`storm_proxies` reads.
+STORM_PROXY_INPUTS = (
+    'mu_cape', 'mu_mixing_ratio', 'mixed_100_cape', 'mixed_100_cin',
+    'mixed_100_lifted_index', 'mixed_100_dci', 'mixed_50_cape',
+    'mixed_50_cin', 'lapse_rate_700_500', 'temp_500', 'freezing_level',
+    'shear_magnitude', 'positive_shear')
+
+
+def storm_proxies(dat):
+    """Literature storm-proxy booleans and the significant hail parameter
+    from a ``conv_properties_fused`` output dict (the keys read are
+    :data:`STORM_PROXY_INPUTS`)."""
+    s06 = dat['shear_magnitude']
+    m100 = torch.where(dat['mixed_100_cape'] >= 0, dat['mixed_100_cape'],
+                       torch.nan)
+    m50 = torch.where(dat['mixed_50_cape'] >= 0, dat['mixed_50_cape'],
+                      torch.nan)
+    mu = torch.where(dat['mu_cape'] >= 0, dat['mu_cape'], torch.nan)
+
+    out = {}
+    out['proxy_Craven2004'] = (m100 * s06) >= 20000.0
+    out['proxy_Kunz2007'] = ((dat['mixed_100_lifted_index'] <= -2.07) |
+                             (mu >= 1474.0) |
+                             (dat['mixed_100_dci'] >= 25.7))
+    out['proxy_Trapp2007'] = ((m100 * s06 >= 10000.0) & (m100 >= 100.0) &
+                              (s06 >= 5.0) & dat['positive_shear'])
+    out['proxy_Marsh2009'] = (m100 * s06) >= 10000.0
+    out['proxy_Allen2011'] = m50 * s06 ** 1.67 >= 25000.0
+    out['proxy_Allen2014'] = (out['proxy_Allen2011'] &
+                              (dat['mixed_50_cin'] > -25.0) &
+                              (s06 > 7.5) &
+                              (dat['lapse_rate_700_500'] < -6.5))
+    out['proxy_Eccel2012'] = ((m100 * s06 > 10000.0) &
+                              (dat['mixed_100_cin'] > -50.0))
+    out['proxy_Mohr2013'] = ((dat['mixed_100_lifted_index'] <= -1.6) |
+                             (m100 >= 439.0) |
+                             (dat['mixed_100_dci'] >= 26.4))
+    ship = diag.significant_hail_parameter(
+        mucape=mu, mixing_ratio=dat['mu_mixing_ratio'],
+        lapse=dat['lapse_rate_700_500'], temp_500=dat['temp_500'],
+        shear=s06, flh=dat['freezing_level'])
+    out['ship'] = ship
+    out['proxy_SHIP_0.1'] = ship > 0.1
     return out
