@@ -12,8 +12,14 @@ Then it drives the public entry points -- ``fused_surface_cape_cin``,
 ``conv_properties_fused``, ``min_conv_properties_fused`` and
 ``storm_proxies`` -- at 786,432
 columns x 90 levels in float32, counts each path's kernel launches and
-checks the outputs against the plain path on the CPU.  Each phase prints
-one line; the last two lines are the kernel record and the result line.
+checks the outputs against the plain path on the CPU.  The modular
+pipelines ``conv_properties`` and ``min_conv_properties`` run at the same
+size (plain torch, no kernel launch), every column held against the fused
+pipelines, with their rates and peak memory (phase 6).  Gradients through
+the kernels' ``autograd.Function``s are held against the CPU twins' and
+central differences, and a forward plus backward of the surface solve is
+timed (phase 7).  Each phase prints one line; the last two lines are the
+kernel record and the result line.
 
 Exits non-zero, with no result line, when there is no CUDA device or when
 any check fails.  Imports nothing of JAX.
@@ -156,26 +162,72 @@ def tail_columns(n, L=LEVELS, seed=11):
     return p, t, td, h
 
 
-def kernel_args(p, t, td, tables):
-    """The kernel's packed arguments for four parcel variants of the same
-    columns -- surface, most unstable (NaN prefix below the parcel) and
-    mixed 100 / 50 hPa (slot-written parcel) -- concatenated on the batch
-    axis, as the main path builds them."""
+def variant_columns(p, t, td):
+    """Four parcel variants of the same columns -- surface, most unstable
+    (NaN prefix below the parcel) and mixed 100 / 50 hPa (slot-written
+    parcel) -- concatenated on the batch axis, as the main path builds
+    them.  Returns (fields, parcel) dicts of pressure, temperature and
+    dewpoint."""
     variants = [({'pressure': p, 'temperature': t, 'dewpoint': td},
                  {'pressure': p[:, 0], 'temperature': t[:, 0],
                   'dewpoint': td[:, 0]}),
                 parcels.from_most_unstable_parcel(p, t, td, depth=250.0),
-                parcels.mix_layer(p, t, td, depth=100.0),
-                parcels.mix_layer(p, t, td, depth=50.0)]
-    cols = {k: torch.cat([f[k] for f, _ in variants]).contiguous()
-            for k in ('pressure', 'temperature', 'dewpoint')}
-    parcel = {k: torch.cat([q[k] for _, q in variants])
-              for k in ('pressure', 'temperature', 'dewpoint')}
+                parcels.mix_layer(p, t, td, depth=100.0, grow=False),
+                parcels.mix_layer(p, t, td, depth=50.0, grow=False)]
+    keys = ('pressure', 'temperature', 'dewpoint')
+    return ({k: torch.cat([f[k] for f, _ in variants]).contiguous()
+             for k in keys},
+            {k: torch.cat([q[k] for _, q in variants]) for k in keys})
+
+
+def kernel_args(p, t, td, tables):
+    """The kernel's packed arguments for :func:`variant_columns`."""
+    cols, parcel = variant_columns(p, t, td)
     row, scalars, k0 = fused.prepass(cols['pressure'], parcel['pressure'],
                                      parcel['temperature'],
                                      parcel['dewpoint'], tables)
     return (cols['pressure'], cols['temperature'], cols['dewpoint'], row,
             scalars, k0)
+
+
+def finite_sum(out, keys):
+    """Sum of the outputs ``keys`` of ``out``, each weighted by its place
+    in ``keys`` (1, 2, ...), with non-finite entries dropped: the scalar
+    the gradient checks differentiate."""
+    return sum((i + 1) * torch.where(torch.isfinite(out[k]), out[k],
+                                     0.0).sum()
+               for i, k in enumerate(keys))
+
+
+def repeated_level(pressure):
+    """(B,) mask of the columns with a level repeated exactly.  The solve
+    is not differentiable there: which one-sided derivative the VJP takes
+    at the zero-width gap turns on the last bit of the temperatures, so a
+    card's and a CPU's rounding may pick different ones."""
+    return (pressure[:, 1:] == pressure[:, :-1]).any(-1).cpu()
+
+
+def compare_grads(name, got, want, skip=None):
+    """Hold float64 gradients (sequences of tensors, batch first) from the
+    card against the CPU's: identical NaN patterns everywhere, and abs
+    diff <= 1e-6 of each gradient's scale outside the (B,) mask ``skip``.
+    Returns the largest relative difference."""
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(got, want)):
+        a, b = a.detach().cpu(), b.detach().cpu()
+        flips = int((torch.isnan(a) != torch.isnan(b)).sum())
+        if flips:
+            raise AssertionError(f'{name}[{i}]: NaN patterns differ in '
+                                 f'{flips} places')
+        scale = max(1.0, b.nan_to_num().abs().max().item())
+        if skip is not None:
+            a, b = a[~skip], b[~skip]
+        rel = ((a - b).nan_to_num().abs().max().item()) / scale
+        if not rel <= 1e-6:
+            raise AssertionError(f'{name}[{i}]: max |diff| {rel:.3g} of the '
+                                 f'scale {scale:.3g}')
+        worst = max(worst, rel)
+    return worst
 
 
 def compare(name, got, want, dtype_name):
@@ -457,6 +509,145 @@ def main():
     log('[5 rate] ' + ', '.join(
         f'{name} {rate:.4g} columns/s ({MAIN_COLUMNS / rate * 1e3:.2f} ms)'
         for name, rate in rates.items()) + f', float32, {smi}')
+
+    # 6. The modular path on the card: plain torch, no kernel launched.
+    modular = {
+        'modular': (lambda: xt.conv_properties(dat, tables=tab32),
+                    'pipeline', xt.conv_properties),
+        'modular reduced': (lambda: xt.min_conv_properties(dat, tables=tab32),
+                            'reduced', xt.min_conv_properties),
+    }
+    mod_rates, peaks = {}, {}
+    for name, (run, fused_name, fn) in modular.items():
+        fused.cape_cin_kernel.launches = diag.diag_kernel.launches = 0
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = run()
+        torch.cuda.synchronize()
+        peaks[name] = (torch.cuda.max_memory_allocated(), base)
+        counts = (fused.cape_cin_kernel.launches, diag.diag_kernel.launches)
+        if counts != (0, 0):
+            raise AssertionError(f'{name}: (solve, tail) launches {counts}, '
+                                 f'want (0, 0)')
+        if set(out) != set(outs[fused_name]):
+            raise AssertionError(f'{name}: outputs {sorted(out)}')
+        for k, v in out.items():
+            if v.shape != (MAIN_COLUMNS,) or v.device != p.device:
+                raise AssertionError(f'{name}/{k}: {v.shape} on {v.device}')
+        # Every column against the fused pipeline on the card, and the
+        # subsample against the modular path on the CPU.
+        compare(f'{name} vs fused/', out, outs[fused_name], 'float32')
+        ref = fn(dat_cpu, tables=tab_cpu)
+        compare(f'{name} vs CPU/', {k: out[k][sub] for k in ref}, ref,
+                'float32')
+        del out
+        mod_rates[name] = MAIN_COLUMNS / wall_median(run, 5)
+    log('[6 modular] ' + '; '.join(
+        f'{name}: (solve, tail) launches 0+0, all {MAIN_COLUMNS} columns '
+        f'within the float32 budget of the fused pipeline, {CHECK_COLUMNS} '
+        f'of the CPU modular path; {mod_rates[name]:.4g} columns/s '
+        f'({MAIN_COLUMNS / mod_rates[name] * 1e3:.2f} ms); peak '
+        f'{peaks[name][0] / 2**30:.2f} GiB allocated '
+        f'({peaks[name][1] / 2**30:.2f} GiB before the call)'
+        for name in modular) + f'; float32, {smi}')
+
+    # 7. Gradients on the card, through the kernels' autograd.Functions.
+    grad_err = {}
+    keys = ('cape', 'cin', 'lifted_index')
+
+    def solve_grads(cols, parcel, tab):
+        leaves = [x.detach().clone().requires_grad_()
+                  for x in (*cols.values(), *parcel.values())]
+        res, _ = xt.fused_cape_cin(
+            *leaves[:3], parcel_pressure=leaves[3],
+            parcel_temperature=leaves[4], parcel_dewpoint=leaves[5],
+            tables=tab, with_lifted_index=True)
+        return torch.autograd.grad(finite_sum(res, keys), leaves)
+
+    hard64 = [torch.as_tensor(x, device=dev) for x in (p_np, t_np, td_np)]
+    cols, parcel = variant_columns(*hard64)
+    fused.cape_cin_kernel.launches = 0
+    g_card = solve_grads(cols, parcel, tab64)
+    n = fused.cape_cin_kernel.launches
+    if n != 1:
+        raise AssertionError(f'gradient solve: {n} kernel launches, want 1')
+    tab64_cpu = xt.AdiabatTables(tab64.coeffs.cpu())
+    g_cpu = solve_grads({k: v.cpu() for k, v in cols.items()},
+                        {k: v.cpu() for k, v in parcel.items()}, tab64_cpu)
+    repeated = repeated_level(cols['pressure'])
+    grad_err['solve'] = compare_grads('solve gradient', g_card, g_cpu,
+                                      skip=repeated)
+
+    # The golden sounding's d(CAPE)/d(surface T) against central
+    # differences of the kernel's forward.
+    gp = torch.tensor([[959., 779.2, 751.3, 724.3, 700., 269.]],
+                      dtype=torch.float64, device=dev)
+    gt = torch.tensor([[22.2, 14.6, 12., 9.4, 7., -38.]],
+                      dtype=torch.float64, device=dev) + 273.15
+    gd = torch.tensor([[19., -11.2, -10.8, -10.4, -10., -53.2]],
+                      dtype=torch.float64, device=dev) + 273.15
+
+    def golden_cape(t0):
+        tt = torch.cat([t0.reshape(1, 1), gt[:, 1:]], -1)
+        return xt.fused_surface_cape_cin(gp, tt, gd, tables=tab64)[0][
+            'cape'][0]
+
+    t0 = gt[0, 0].clone().requires_grad_()
+    g_gold = torch.autograd.grad(golden_cape(t0), t0)[0].item()
+    with torch.no_grad():
+        fd = ((golden_cape(gt[0, 0] + 1e-4) - golden_cape(gt[0, 0] - 1e-4))
+              / 2e-4).item()
+    if not abs(g_gold - fd) <= 1e-4 * abs(fd):
+        raise AssertionError(f'golden gradient {g_gold!r} vs central '
+                             f'difference {fd!r}')
+
+    # The full fused pipeline's gradient (both Functions) on the
+    # subsample, float64, against the CPU's.
+    def pipeline_grads(d, tab):
+        d = dict(d)
+        leaves = [d[k].detach().clone().requires_grad_()
+                  for k in ('temperature', 'specific_humidity')]
+        d['temperature'], d['specific_humidity'] = leaves
+        out = xt.conv_properties_fused(d, tables=tab)
+        floats = [k for k in sorted(out) if out[k].dtype != torch.bool]
+        return torch.autograd.grad(finite_sum(out, floats), leaves)
+
+    dat64 = {k: v[sub].double() for k, v in dat.items()}
+    fused.cape_cin_kernel.launches = diag.diag_kernel.launches = 0
+    g_card = pipeline_grads(dat64, tab64)
+    counts = (fused.cape_cin_kernel.launches, diag.diag_kernel.launches)
+    if counts != (3, 1):
+        raise AssertionError(f'pipeline gradient: launches {counts}')
+    g_cpu = pipeline_grads({k: v.cpu() for k, v in dat64.items()},
+                           tab64_cpu)
+    grad_err['pipeline'] = compare_grads('pipeline gradient', g_card, g_cpu)
+
+    # Forward plus backward of the surface solve, float32.
+    n_grad = 65_536
+    gcols = [x[:n_grad] for x in (p, t, td)]
+
+    def surface_step(backward=True):
+        tt = gcols[1].detach().clone().requires_grad_(backward)
+        res, _ = xt.fused_surface_cape_cin(gcols[0], tt, gcols[2],
+                                           tables=tab32,
+                                           with_lifted_index=True)
+        if backward:
+            torch.autograd.grad(finite_sum(res, keys), tt)
+
+    fwd_bwd_s = wall_median(surface_step, 5)
+    fwd_s = wall_median(lambda: surface_step(False), 5)
+    log(f'[7 gradients] float64 through the solve Function on '
+        f'{cols["pressure"].shape[0]} hard columns (1 launch) vs the CPU '
+        f'twin: identical NaN patterns; max diff {grad_err["solve"]:.3g} '
+        f'of scale outside the {int(repeated.sum())} columns with a '
+        f'repeated level (not differentiable there); golden '
+        f'd(CAPE)/dT0 {g_gold:.6f} vs central difference {fd:.6f}; '
+        f'conv_properties_fused gradient (3+1 launches) on {CHECK_COLUMNS} '
+        f'columns vs the CPU: {grad_err["pipeline"]:.3g} of scale; '
+        f'fused_surface_cape_cin at {n_grad} float32 columns forward plus '
+        f'backward {fwd_bwd_s * 1e3:.2f} ms (forward alone '
+        f'{fwd_s * 1e3:.2f} ms), {smi}')
 
     record = {'kernels': [{
         'name': 'fused_cape_cin',

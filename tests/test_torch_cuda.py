@@ -96,6 +96,51 @@ def test_profile_tracks_match_twin(device, coeffs, dtype):
     chip_smoke.compare('profile LI', li, out[-1], name)
 
 
+def test_solve_gradient_matches_twin(device, coeffs):
+    """The solve's autograd.Function on the card: one launch forward, and
+    the gradient (the twin's VJP on the card) equal to the CPU's."""
+    tables = AdiabatTables(coeffs)
+    cols, parcel = chip_smoke.variant_columns(*(
+        torch.as_tensor(x, device=device)
+        for x in chip_smoke.hard_columns(301, L=57, seed=3)))
+
+    def grads(dev, tab):
+        leaves = [x.detach().to(dev).requires_grad_()
+                  for x in (*cols.values(), *parcel.values())]
+        res, _ = fused.fused_cape_cin(
+            *leaves[:3], parcel_pressure=leaves[3],
+            parcel_temperature=leaves[4], parcel_dewpoint=leaves[5],
+            tables=tab, with_lifted_index=True)
+        loss = chip_smoke.finite_sum(res, ('cape', 'cin', 'lifted_index'))
+        return torch.autograd.grad(loss, leaves)
+
+    before = fused.cape_cin_kernel.launches
+    got = grads(device, tables)
+    assert fused.cape_cin_kernel.launches == before + 1
+    want = grads('cpu', AdiabatTables(coeffs.cpu()))
+    chip_smoke.compare_grads(
+        'solve gradient', got, want,
+        skip=chip_smoke.repeated_level(cols['pressure']))
+
+
+def test_tail_gradient_matches_twin(device):
+    cols = [torch.as_tensor(x, device=device)
+            for x in chip_smoke.tail_columns(517, L=61, seed=5)]
+
+    def grads(dev):
+        leaves = [x.detach().to(dev).requires_grad_() for x in cols]
+        out = diag.diag_fused(*leaves)
+        loss = chip_smoke.finite_sum(dict(zip(diag.DIAG_OUTPUTS, out)),
+                                     diag.DIAG_OUTPUTS)
+        return torch.autograd.grad(loss, leaves, allow_unused=True)
+
+    before = diag.diag_kernel.launches
+    got = grads(device)
+    assert diag.diag_kernel.launches == before + 1
+    want = grads('cpu')
+    chip_smoke.compare_grads('tail gradient', got, want)
+
+
 @pytest.mark.parametrize('dtype', [torch.float64, torch.float32])
 def test_tail_kernel_matches_twin(device, dtype):
     cols = [torch.as_tensor(x, dtype=dtype, device=device)

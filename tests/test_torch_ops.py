@@ -344,5 +344,6 @@ def test_bound_pressure_and_get_layer():
                                'temperature': jnp.asarray(t)},
                               depth=depth, interpolate=False)
         got = tops.get_layer({'pressure': to_torch(p),
-                              'temperature': to_torch(t)}, depth=depth)
+                              'temperature': to_torch(t)}, depth=depth,
+                             interpolate=False)
         assert_same(want, got)

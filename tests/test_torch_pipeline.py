@@ -241,11 +241,14 @@ def test_mixed_parcel_and_mix_layer(depth):
     p, t, td = prep_columns()
     assert_same(*both(jparcels.mixed_parcel, tparcels.mixed_parcel, p, t, td,
                       depth=depth))
-    # The port's mix_layer is the JAX package's slot write (grow=False).
-    want = jparcels.mix_layer(*(jnp.asarray(a) for a in (p, t, td)),
-                              depth=depth, grow=False)
-    assert_same(want, tparcels.mix_layer(*(to_torch(a) for a in (p, t, td)),
-                                         depth=depth))
+    # Both the slot write (grow=False) and the splice (the default).
+    for grow in (False, True):
+        want = jparcels.mix_layer(*(jnp.asarray(a) for a in (p, t, td)),
+                                  depth=depth, grow=grow)
+        got = tparcels.mix_layer(*(to_torch(a) for a in (p, t, td)),
+                                 depth=depth, grow=grow)
+        assert got[0]['pressure'].shape[-1] == p.shape[-1] + grow
+        assert_same(want, got)
 
 
 def test_most_unstable_parcel():

@@ -1,23 +1,39 @@
-"""PyTorch/CUDA port of xarray_parcel_tpu's fused convection diagnostics.
+"""PyTorch/CUDA port of xarray_parcel_tpu's convection diagnostics.
 
 Plain torch functions on tensors with the level axis last: the fused
-pipelines (``conv_properties_fused``, ``min_conv_properties_fused``), the
-storm proxies and SHIP, and the fused CAPE/CIN solve.  On the GPU the
-per-column CAPE/CIN solve and the pipelines' diagnostics tail run in
+pipelines (``conv_properties_fused``, ``min_conv_properties_fused``) and
+the modular ones (``conv_properties``, ``min_conv_properties``), the storm
+proxies and SHIP, the fused CAPE/CIN solve, and the modular path under the
+latter: parcel profiles, ``cape_cin`` and its surface, most-unstable and
+mixed-layer variants, ``moist_lapse`` and the exact wet bulb.  On the GPU
+the fused paths' per-column CAPE/CIN solve and diagnostics tail run in
 hand-written CUDA kernels (``csrc/fused_cape.cu``, ``csrc/diag_tail.cu``,
-built at first use by ``_build.py``); on the CPU in their plain torch
-twins.  Imports torch and numpy only.
+built at first use by ``_build.py``), on the CPU in their plain torch
+twins; every output is differentiable, the kernels' gradient being their
+twins' VJP.  The modular path is plain torch on either device.  Imports
+torch and numpy only.
 """
 
 from . import adiabat, cape, constants, diagnostics, fused, lcl, ops
-from . import parcels, pipeline, thermo
-from .adiabat import AdiabatTables
+from . import parcels, pipeline, profile, thermo
+from .adiabat import AdiabatTables, moist_lapse, moist_lapse_integrate
+from .cape import cape_cin, surface_based_cape_cin
+from .diagnostics import wet_bulb_temperature
 from .fused import fused_cape_cin, fused_surface_cape_cin
-from .pipeline import (conv_properties_fused, min_conv_properties_fused,
+from .parcels import mixed_layer_cape_cin, most_unstable_cape_cin
+from .pipeline import (conv_properties, conv_properties_fused,
+                       min_conv_properties, min_conv_properties_fused,
                        storm_proxies)
+from .profile import (add_lcl_to_profile, parcel_profile,
+                      parcel_profile_with_lcl)
 
 __all__ = ['adiabat', 'cape', 'constants', 'diagnostics', 'fused', 'lcl',
-           'ops', 'parcels', 'pipeline', 'thermo', 'AdiabatTables',
+           'ops', 'parcels', 'pipeline', 'profile', 'thermo',
+           'AdiabatTables', 'moist_lapse', 'moist_lapse_integrate',
+           'cape_cin', 'surface_based_cape_cin', 'wet_bulb_temperature',
            'fused_cape_cin', 'fused_surface_cape_cin',
-           'conv_properties_fused', 'min_conv_properties_fused',
-           'storm_proxies']
+           'mixed_layer_cape_cin', 'most_unstable_cape_cin',
+           'conv_properties', 'conv_properties_fused',
+           'min_conv_properties', 'min_conv_properties_fused',
+           'storm_proxies', 'add_lcl_to_profile', 'parcel_profile',
+           'parcel_profile_with_lcl']

@@ -1,9 +1,11 @@
-"""LFC/EL selection and CAPE/CIN integration over a crossing set.
+"""LFC/EL selection and CAPE/CIN integration.
 
-Port of ``lfc_el`` and ``cape_cin_base`` from ``xarray_parcel_tpu.cape``,
-in the log-pressure form the fused path uses: the crossing set comes in with
+Port of ``xarray_parcel_tpu.cape``.  ``lfc_el`` and ``cape_cin_base`` take
+the log-pressure form both paths use: the crossing set comes in with
 log-pressure positions, every window comparison runs in log space, and only
-the LFC/EL pressures are exponentiated.
+the LFC/EL pressures are exponentiated.  ``cape_cin`` and
+``surface_based_cape_cin`` are the modular path: the parcel profile with
+the LCL spliced in, then the same selection and integration.
 
 * LFC = bottom-most (highest-pressure) increasing parcel/environment
   crossing above the LCL, with the USAF1990 LCL-substitution rules;
@@ -16,8 +18,10 @@ the LFC/EL pressures are exponentiated.
 import torch
 
 from . import constants as c
-from .ops import nanmax, nanmin, nansum, notnan, safe_exp, trap_around_zeros
+from .ops import (find_intersections, first_valid_index, nanmax, nanmin,
+                  nansum, notnan, safe_exp, safe_log, trap_around_zeros)
 from .ops.integrate import gap_areas, select_areas
+from .profile import parcel_profile_with_lcl
 
 
 def lfc_el(parcel_temperature, temperature, lcl_pressure, lcl_temperature,
@@ -96,10 +100,13 @@ def lfc_el(parcel_temperature, temperature, lcl_pressure, lcl_temperature,
 
 
 def cape_cin_base(temperature, parcel_temperature, intersections,
-                  log_pressure, log_lfc_pressure, log_el_pressure):
-    """CAPE and CIN from a parcel track and log LFC/EL pressures, with the
-    reference's defaults: positive buoyancy only toward CAPE, negative only
-    toward CIN (``pos_cape_neg_cin=True``), CIN not clamped."""
+                  log_pressure, log_lfc_pressure, log_el_pressure,
+                  pos_cape_neg_cin=True, post_zero_cin=False):
+    """CAPE and CIN from a parcel track and log LFC/EL pressures.
+
+    ``pos_cape_neg_cin`` (the reference's default) counts only positive
+    buoyancy toward CAPE and only negative toward CIN; ``post_zero_cin``
+    clamps a positive CIN to zero (MetPy's convention)."""
     t, pt, log_p = temperature, parcel_temperature, log_pressure
     lfc_lp = log_lfc_pressure[..., None]
     el = log_el_pressure
@@ -118,14 +125,69 @@ def cape_cin_base(temperature, parcel_temperature, intersections,
         return m[..., :-1] & m[..., 1:]
 
     in_cape = (log_p <= lfc_lp) & (log_p >= el_lp)
-    a_cape = (area_x <= lfc_lp) & (area_x >= el_lp) & (area > 0)
+    a_cape = (area_x <= lfc_lp) & (area_x >= el_lp)
+    if pos_cape_neg_cin:
+        a_cape = a_cape & (area > 0)
     cape = c.Rd * select_areas(t_area, t_valid & both_ends(in_cape),
-                               mask=gap_mask, only_positive=True)
+                               mask=gap_mask, only_positive=pos_cape_neg_cin)
     cape = cape + c.Rd * nansum(area, where=a_cape)
 
     in_cin = log_p >= lfc_lp
-    a_cin = (area_x >= lfc_lp) & (area < 0)
+    a_cin = area_x >= lfc_lp
+    if pos_cape_neg_cin:
+        a_cin = a_cin & (area < 0)
     cin = c.Rd * select_areas(t_area, t_valid & both_ends(in_cin),
-                              mask=gap_mask, only_negative=True)
+                              mask=gap_mask, only_negative=pos_cape_neg_cin)
     cin = cin + c.Rd * nansum(area, where=a_cin)
+    if post_zero_cin:
+        cin = torch.where(cin <= 0, cin, 0.0)
     return {'cape': cape, 'cin': cin}
+
+
+def cape_cin(pressure, temperature, dewpoint, parcel_temperature,
+             parcel_pressure, parcel_dewpoint,
+             virtual_temperature_correction=True, lcl_interp='log',
+             tables=None, moist_lapse=None, pos_cape_neg_cin=True,
+             post_zero_cin=False):
+    """Full CAPE/CIN: parcel profile with the LCL, LFC/EL, integration.
+
+    Returns (cape/cin dict, profile dict merged with the LFC/EL solution).
+    With ``virtual_temperature_correction`` (the reference's default) the
+    LFC/EL search and the integration run on the virtual-temperature
+    tracks.  ``lcl_interp``, ``tables`` and ``moist_lapse`` go to
+    :func:`profile.parcel_profile_with_lcl`; ``pos_cape_neg_cin`` and
+    ``post_zero_cin`` to :func:`cape_cin_base`.
+    """
+    profile = parcel_profile_with_lcl(
+        pressure, temperature, dewpoint, parcel_pressure,
+        parcel_temperature, parcel_dewpoint, lcl_interp=lcl_interp,
+        tables=tables, moist_lapse=moist_lapse)
+    vt = 'virtual_' if virtual_temperature_correction else ''
+    parcel_track = profile[f'{vt}temperature']
+    env_track = profile[f'environment_{vt}temperature']
+    lcl_track_t = profile[f'lcl_{vt}temperature']
+
+    # One crossing set, in log pressure, serves the LFC/EL selection and
+    # the exact-area integration.
+    pp, ptr, env = torch.broadcast_tensors(profile['pressure'], parcel_track,
+                                           env_track)
+    lp = safe_log(pp)
+    ints = find_intersections(pp, ptr, env, log_x=True, log_x_values=lp,
+                              log_outputs=True)
+    lcl_p = profile['lcl_pressure']
+    sol = lfc_el(ptr, env, lcl_p, lcl_track_t, ints, lp, safe_log(lcl_p),
+                 first_valid_index(pp))
+    res = cape_cin_base(env, ptr, ints, lp, sol.pop('_lfc_log_pressure'),
+                        sol.pop('_el_log_pressure'),
+                        pos_cape_neg_cin=pos_cape_neg_cin,
+                        post_zero_cin=post_zero_cin)
+    return res, {**profile, **sol}
+
+
+def surface_based_cape_cin(pressure, temperature, dewpoint, **kwargs):
+    """CAPE/CIN of the parcel launched from the lowest level (index 0);
+    ``kwargs`` as for :func:`cape_cin`."""
+    return cape_cin(pressure, temperature, dewpoint,
+                    parcel_temperature=temperature[..., 0],
+                    parcel_pressure=pressure[..., 0],
+                    parcel_dewpoint=dewpoint[..., 0], **kwargs)

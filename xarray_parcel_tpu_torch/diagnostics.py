@@ -1,21 +1,26 @@
-"""Scalar convection diagnostics read by the fused pipelines.
+"""Scalar convection diagnostics.
 
-Port of the matching functions of ``xarray_parcel_tpu.diagnostics``: lifted
-index, deep convective index, 700-500 hPa lapse rate, freezing and (fast)
-melting level heights, bulk wind shear and the significant hail parameter.
+Port of ``xarray_parcel_tpu.diagnostics``: lifted index, deep convective
+index, 700-500 hPa lapse rate, isobar temperature, freezing and melting
+level heights, the exact and fast wet bulb, bulk wind shear and the
+significant hail parameter.
 
-The pipelines' diagnostics tail (t850/td850, lapse rate and t500, freezing
-and melting levels) runs on a CUDA tensor in the hand-written kernel
-``csrc/diag_tail.cu`` (:func:`diag_kernel`, the port of the JAX package's
-``benchmarks/diag_kernel_ab.py::_diag_kernel``) and on a CPU tensor in its
-plain twin :func:`_diag_body`.
+The fused pipelines' diagnostics tail (t850/td850, lapse rate and t500,
+freezing and melting levels) runs on a CUDA tensor in the hand-written
+kernel ``csrc/diag_tail.cu`` (:func:`diag_kernel`, the port of the JAX
+package's ``benchmarks/diag_kernel_ab.py::_diag_kernel``) and on a CPU
+tensor in its plain twin :func:`_diag_body`.  With gradients wanted,
+:func:`diag_fused` goes through :class:`DiagTail`, whose backward is the
+twin's VJP.
 """
 
 import torch
 
-from . import thermo
+from . import adiabat, thermo
 from ._build import launch
-from .ops import find_intersections, interp_many, nanmin
+from ._vjp import twin_vjp
+from .lcl import lcl
+from .ops import find_intersections, interp_many, log_interp, nanmin, notnan
 
 #: Order of the tail kernel's (and its twin's) output rows.
 DIAG_OUTPUTS = ('t850', 'td850', 'lapse_rate_700_500', 'temp_500',
@@ -55,6 +60,11 @@ def lapse_rate(pressure, temperature, height, from_pressure=700.0,
     return (rate, t_from, t_to) if with_isobars else rate
 
 
+def isobar_temperature(pressure, temperature, isobar):
+    """Temperature at a given pressure level (log-p interpolation)."""
+    return log_interp(temperature, pressure, isobar)
+
+
 def freezing_level_height(temperature, height):
     """Height [m] of the lowest 0 C crossing of the temperature."""
     zeros = torch.full_like(temperature, 273.15)
@@ -62,10 +72,40 @@ def freezing_level_height(temperature, height):
     return nanmin(ints['all_x'])
 
 
-def melting_level_height(pressure, temperature, dewpoint, height):
-    """Height of the 0 C wet-bulb isotherm with the Knox one-third rule
-    (``fast=True``).  Returns (height, wet-bulb temperature field)."""
-    wb = thermo.wet_bulb_temperature_fast(temperature, dewpoint)
+def wet_bulb_temperature(pressure, temperature, dewpoint, tables=None,
+                         moist_lapse=None):
+    """Exact wet-bulb temperature by Normand's rule: every point is its own
+    parcel, lifted dry to its LCL and brought moist-adiabatically back down
+    to its own pressure.
+
+    The default backend is the RK4 oracle
+    :func:`adiabat.moist_lapse_integrate` (the LCL lies a short way above
+    each point); ``moist_lapse=adiabat.moist_lapse`` takes the tables.
+    Either way the table envelope is imposed: a state outside the curve
+    family, or a pressure outside 1100-2.5 hPa, gives NaN.
+    """
+    ml = moist_lapse or adiabat.moist_lapse_integrate
+    lcls = lcl(pressure, temperature, dewpoint)
+    wb = ml(pressure, lcls['lcl_temperature'], lcls['lcl_pressure'],
+            tables=tables, pointwise=True)
+    fidx = adiabat.curve_index_integrate(lcls['lcl_pressure'],
+                                         lcls['lcl_temperature'])
+    ok = (notnan(fidx) & (pressure >= adiabat.P_BOT) &
+          (pressure <= adiabat.P_TOP))
+    return torch.where(ok, wb, torch.nan)
+
+
+def melting_level_height(pressure, temperature, dewpoint, height, fast=True,
+                         tables=None, moist_lapse=None):
+    """Height of the 0 C wet-bulb isotherm: with ``fast`` the wet bulb of
+    the Knox one-third rule, else :func:`wet_bulb_temperature` (with
+    ``tables`` and ``moist_lapse``).  Returns (height, wet-bulb
+    temperature field)."""
+    if fast:
+        wb = thermo.wet_bulb_temperature_fast(temperature, dewpoint)
+    else:
+        wb = wet_bulb_temperature(pressure, temperature, dewpoint,
+                                  tables=tables, moist_lapse=moist_lapse)
     return freezing_level_height(wb, height), wb
 
 
@@ -155,11 +195,33 @@ def diag_kernel(p, t, td, h):
 diag_kernel.launches = 0
 
 
+class DiagTail(torch.autograd.Function):
+    """:func:`diag_kernel` with a gradient: the forward launches the kernel
+    (the twin on a CPU tensor), the backward is the VJP of
+    :func:`_diag_body` recomputed from the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, p, t, td, h):
+        ctx.save_for_backward(p, t, td, h)
+        return diag_kernel(p, t, td, h)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return tuple(twin_vjp(lambda *x: torch.stack(_diag_body(*x)),
+                              ctx.saved_tensors, ctx.needs_input_grad,
+                              (grad,)))
+
+
 def diag_fused(p, t, td, h):
     """The diagnostics tail for (…, L) columns of any batch shape, through
-    :func:`diag_kernel`.  Returns the six (…) outputs in
+    :func:`diag_kernel`, or :class:`DiagTail` when grad mode is on and an
+    input requires grad.  Returns the six (…) outputs in
     :data:`DIAG_OUTPUTS` order."""
     p, t, td, h = torch.broadcast_tensors(p, t, td, h)
     batch, L = p.shape[:-1], p.shape[-1]
-    out = diag_kernel(*(x.reshape(-1, L) for x in (p, t, td, h)))
+    flat = [x.reshape(-1, L) for x in (p, t, td, h)]
+    if torch.is_grad_enabled() and any(x.requires_grad for x in flat):
+        out = DiagTail.apply(*flat)
+    else:
+        out = diag_kernel(*flat)
     return tuple(v.reshape(batch) for v in out)

@@ -12,7 +12,9 @@ On a CUDA tensor the solve runs in the hand-written kernel
 ``csrc/fused_cape.cu`` (one thread per column); on a CPU tensor it runs in
 ``_column_program``, the same solve as vectorised torch on (B, L) tensors.
 The O(B) pre-pass (LCL fixed point, curve index, coefficient-row blend,
-first-valid level) is plain torch on either device.
+first-valid level) is plain torch on either device, so gradients reach the
+parcel state through it.  The kernel's gradient is the twin's VJP
+(:class:`CapeCinSolve`).
 """
 
 import math
@@ -22,6 +24,7 @@ import torch
 from . import adiabat, thermo
 from . import constants as c
 from ._build import launch
+from ._vjp import twin_vjp
 from .adiabat import P_BOT, P_TOP, _eval_spectral
 from .cape import cape_cin_base, lfc_el
 from .lcl import lcl
@@ -164,6 +167,27 @@ def cape_cin_kernel(p, t, td, row, scalars, k0, with_profile=False):
 cape_cin_kernel.launches = 0
 
 
+class CapeCinSolve(torch.autograd.Function):
+    """:func:`cape_cin_kernel` with a gradient, as the JAX package's
+    ``custom_vjp``: the forward launches the kernel (the twin on a CPU
+    tensor); the backward recomputes :func:`_column_outputs` from the
+    saved inputs and returns its VJP.  ``k0`` gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, p, t, td, row, scalars, k0, with_profile):
+        ctx.with_profile = with_profile
+        ctx.save_for_backward(p, t, td, row, scalars, k0)
+        return cape_cin_kernel(p, t, td, row, scalars, k0, with_profile)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        *floats, k0 = ctx.saved_tensors
+        got = twin_vjp(
+            lambda *x: _column_outputs(*x, k0, ctx.with_profile), floats,
+            ctx.needs_input_grad[:len(floats)], grads)
+        return (*got, None, None)
+
+
 def prepass(p, p0, t0, td0, tables):
     """The O(B) pre-pass: per-column kernel arguments from the flat (B, L)
     pressure columns and (B,) parcel state.  Returns (row, scalars, k0)."""
@@ -193,6 +217,10 @@ def fused_cape_cin(pressure, temperature, dewpoint, parcel_pressure=None,
     ``with_profile``, ``res['profile']`` holds the LCL-spliced column's
     ``pressure``, parcel ``temperature`` and ``environment_temperature``,
     each of shape batch + (L+1,).
+
+    With grad mode on and an input requiring grad, the solve goes through
+    :class:`CapeCinSolve` and every output is differentiable; otherwise it
+    calls :func:`cape_cin_kernel` directly.
     """
     p, t, td = pressure, temperature, dewpoint
     if tables is None:
@@ -215,8 +243,11 @@ def fused_cape_cin(pressure, temperature, dewpoint, parcel_pressure=None,
     td0 = flat_scalar(parcel_dewpoint, td[:, 0])
 
     row, scalars, k0 = prepass(p, p0, t0, td0, tables)
-    out = cape_cin_kernel(p.contiguous(), t.contiguous(), td.contiguous(),
-                          row, scalars, k0, with_profile)
+    args = (p.contiguous(), t.contiguous(), td.contiguous(), row, scalars)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in args):
+        out = CapeCinSolve.apply(*args, k0, with_profile)
+    else:
+        out = cape_cin_kernel(*args, k0, with_profile)
     if with_profile:
         out, prof = out
     shaped = {k: v.reshape(batch_shape) for k, v in zip(OUTPUTS, out)}

@@ -39,6 +39,16 @@ def select_areas(areas, valid, mask=None, only_positive=False,
     return torch.where(sel, areas, 0.0).sum(-1)
 
 
+def trapz(y, x, mask=None, only_positive=False, only_negative=False):
+    """NaN-skipping trapezoidal integral of ``y`` against ``x`` along the
+    level axis: gaps touching a NaN are skipped, ``mask`` (…, L-1) selects
+    the gaps that count, ``only_positive``/``only_negative`` keep gaps of
+    that sign; an empty selection integrates to 0."""
+    areas, valid = gap_areas(y, x)
+    return select_areas(areas, valid, mask=mask, only_positive=only_positive,
+                        only_negative=only_negative)
+
+
 def trap_around_zeros(x, y, log_x=True, intersections=None,
                       log_x_values=None):
     """Rectangle areas hugging each zero crossing of ``y`` along ``x``.

@@ -3,7 +3,8 @@
 Port of ``xarray_parcel_tpu.ops.interp``: anchors are the closest coordinate
 >= the target and the closest <= it; duplicate anchor coordinates average
 their values; equal anchor values pass through unchanged; targets outside
-the column give NaN.
+the column give NaN, or with ``extrapolate`` lie on the line through the
+two outermost distinct coordinates.
 """
 
 import torch
@@ -12,11 +13,14 @@ from .reduce import nanmax, nanmean, nanmin
 from .safe import notnan, safe_log
 
 
-def interp_many(xs, coords, at, log=False, log_coords=None):
+def interp_many(xs, coords, at, extrapolate=False, log=False,
+                log_coords=None):
     """Interpolate several (…, L) variables at one per-column target ``at``
     (a tensor of shape (…) or a float), sharing one anchor computation.
 
     ``xs``: dict or sequence of tensors; the same container type comes back.
+    ``extrapolate``: a target outside the column takes the line through
+    the two outermost distinct coordinates on its side.
     ``log``: interpolate in log-coordinate space; ``log_coords`` optionally
     supplies the precomputed ``log(coords)``.
     """
@@ -29,6 +33,20 @@ def interp_many(xs, coords, at, log=False, log_coords=None):
 
     coords_before = nanmin(coords, where=coords >= atb)
     coords_after = nanmax(coords, where=coords <= atb)
+
+    if extrapolate:
+        below = torch.isnan(coords_before)
+        above = torch.isnan(coords_after)
+        # Second largest / second smallest coordinate (duplicates of the
+        # extreme one are skipped, as in the reference).
+        second_lowest = nanmax(coords,
+                               where=coords != nanmax(coords)[..., None])
+        second_highest = nanmin(coords,
+                                where=coords != nanmin(coords)[..., None])
+        coords_before = torch.where(below, coords_after, coords_before)
+        coords_after = torch.where(below, second_lowest, coords_after)
+        coords_after = torch.where(above, coords_before, coords_after)
+        coords_before = torch.where(above, second_highest, coords_before)
 
     mask_before = coords == coords_before[..., None]
     mask_after = coords == coords_after[..., None]
@@ -47,11 +65,12 @@ def interp_many(xs, coords, at, log=False, log_coords=None):
     return type(xs)(one(v) for v in xs)
 
 
-def linear_interp(x, coords, at):
+def linear_interp(x, coords, at, extrapolate=False):
     """Interpolate ``x`` (…, L) at the per-column target ``at``."""
-    return interp_many((x,), coords, at)[0]
+    return interp_many((x,), coords, at, extrapolate=extrapolate)[0]
 
 
-def log_interp(x, coords, at):
+def log_interp(x, coords, at, extrapolate=False):
     """``linear_interp`` in log-coordinate space."""
-    return interp_many((x,), coords, at, log=True)[0]
+    return interp_many((x,), coords, at, extrapolate=extrapolate,
+                       log=True)[0]

@@ -8,6 +8,7 @@ coordinate (decreasing with level, NaNs trailing or leading).
 
 import torch
 
+from .interp import interp_many
 from .reduce import nanmax, nanmin
 from .safe import notnan
 
@@ -80,13 +81,25 @@ def bound_pressure(pressure, bound):
     return nanmax(pressure, where=diffs == min_diff[..., None])
 
 
-def get_layer(fields, depth=100.0, coord='pressure'):
-    """Surface-based layer of the given pressure depth [hPa], its top
-    snapped to the nearest existing level (``interpolate=False``); levels
-    outside the layer are NaN-masked."""
-    fields = _broadcast_fields(fields)
+def get_layer(fields, depth=100.0, interpolate=True, coord='pressure'):
+    """Surface-based layer of the given pressure depth [hPa]; levels
+    outside the layer are NaN-masked.
+
+    With ``interpolate`` the layer top is log-interpolated and inserted as
+    a new level (L+1 levels out); otherwise it snaps to the nearest
+    existing level (L levels out).
+    """
     p = fields[coord]
     bottom = nanmax(p)
-    top = bound_pressure(p, bottom - depth)
-    mask = (p <= bottom[..., None]) & (p >= top[..., None])
+    if interpolate:
+        top = bottom - depth
+        level = interp_many({k: v for k, v in fields.items() if k != coord},
+                            p, top, log=True)
+        level[coord] = top
+        fields = insert_level(fields, level, coord=coord)
+    else:
+        top = bound_pressure(p, bottom - depth)
+        fields = _broadcast_fields(fields)
+    pnew = fields[coord]
+    mask = (pnew <= bottom[..., None]) & (pnew >= top[..., None])
     return {k: torch.where(mask, v, torch.nan) for k, v in fields.items()}

@@ -1,15 +1,18 @@
-"""The fused convection-diagnostics pipelines and the storm proxies.
+"""The convection-diagnostics pipelines and the storm proxies.
 
-Port of ``xarray_parcel_tpu.pipeline``'s ``conv_properties_fused``,
-``min_conv_properties_fused`` and ``storm_proxies`` (slot-write mixed
-layers).  Inputs are a dict of tensors with the reference's variable names:
-``pressure``, ``temperature``, ``specific_humidity``, ``height_asl`` (…, L),
-``surface_wind_u``/``surface_wind_v`` (…) and ``wind_u``/``wind_v``/
+Port of ``xarray_parcel_tpu.pipeline``.  Inputs are a dict of tensors with
+the reference's variable names: ``pressure``, ``temperature``,
+``specific_humidity``, ``height_asl`` (…, L), ``surface_wind_u``/
+``surface_wind_v`` (…) and ``wind_u``/``wind_v``/
 ``wind_height_above_surface`` (…, Lw).
 
-On CUDA tensors each CAPE/CIN solve runs in the ``csrc/fused_cape.cu``
-kernel and the diagnostics tail (t850/td850, lapse rate and t500, freezing
-and melting levels) in the ``csrc/diag_tail.cu`` kernel, once per call.
+The modular pipelines ``conv_properties`` and ``min_conv_properties``
+build every parcel profile (``cape.cape_cin``) and are plain torch on
+either device.  In the fused ones, ``conv_properties_fused`` and
+``min_conv_properties_fused``, each CAPE/CIN solve runs on CUDA tensors in
+the ``csrc/fused_cape.cu`` kernel and the diagnostics tail (t850/td850,
+lapse rate and t500, freezing and melting levels) in the
+``csrc/diag_tail.cu`` kernel, once per call.
 """
 
 import torch
@@ -17,8 +20,106 @@ import torch
 from . import diagnostics as diag
 from . import thermo
 from .fused import fused_cape_cin
+from .ops import interp_many
 from .parcels import (bridge_neighbors, conserved_fields,
-                      from_most_unstable_parcel, mix_layer)
+                      from_most_unstable_parcel, mix_layer,
+                      mixed_layer_cape_cin, most_unstable_cape_cin)
+
+
+def _prefix(d, prefix):
+    return {f'{prefix}_{k}': v for k, v in d.items()}
+
+
+def _dewpoint_and_valid(dat):
+    """(p, t, dewpoint from q, valid-column mask)."""
+    p = dat['pressure']
+    t = dat['temperature']
+    q = dat['specific_humidity']
+    dew = thermo.dewpoint_from_specific_humidity(p, t, q)
+    valid = ~(torch.isnan(dew).any(-1) | torch.isnan(p).any(-1) |
+              torch.isnan(t).any(-1) | torch.isnan(q).any(-1))
+    return p, t, dew, valid
+
+
+def _mask_invalid(out, valid):
+    """NaN (booleans False) in every column outside ``valid``."""
+    for k, v in out.items():
+        fill = False if v.dtype == torch.bool else torch.nan
+        out[k] = torch.where(valid, v, fill)
+    return out
+
+
+def conv_properties(dat, ignore_nans=False, tables=None, moist_lapse=None):
+    """The full ~20-variable diagnostics set on the modular path: CAPE/CIN
+    of the most-unstable (250 hPa), mixed-100 and mixed-50 parcels from
+    their profiles, the lifted index of each profile and its DCI, the
+    most-unstable mixing ratio, 700-500 hPa lapse rate, 500 hPa
+    temperature, freezing/melting level heights and 0-6 km shear.
+
+    ``tables``/``moist_lapse`` select the lifting backend of every profile
+    (:func:`profile.parcel_profile`).  Unless ``ignore_nans``, every output
+    is NaN (booleans False) in a column where any input level is NaN.
+    """
+    kw = dict(tables=tables, moist_lapse=moist_lapse)
+    p, t, dew, valid = _dewpoint_and_valid(dat)
+
+    mu_cc, mu_prof, mu_parcel = most_unstable_cape_cin(p, t, dew,
+                                                       depth=250.0, **kw)
+    cons = conserved_fields(p, t, dew)
+    nbrs = bridge_neighbors(p, ~(torch.isnan(p) | torch.isnan(t) |
+                                 torch.isnan(dew)))
+    m100_cc, m100_prof, _ = mixed_layer_cape_cin(
+        p, t, dew, depth=100.0, neighbors=nbrs, conserved=cons, **kw)
+    m50_cc, m50_prof, _ = mixed_layer_cape_cin(
+        p, t, dew, depth=50.0, neighbors=nbrs, conserved=cons, **kw)
+    li = {name: diag.lifted_index(prof)['lifted_index']
+          for name, prof in (('mu', mu_prof), ('mixed_100', m100_prof),
+                             ('mixed_50', m50_prof))}
+    del mu_prof, m100_prof, m50_prof
+
+    anchors_850 = interp_many((t, dew), p, 850.0, log=True)
+    mu_mixing_ratio = thermo.mixing_ratio_from_specific_humidity(
+        thermo.specific_humidity_from_dewpoint(mu_parcel['pressure'],
+                                               mu_parcel['dewpoint']))
+    height = dat['height_asl']
+    lapse, _, temp_500 = diag.lapse_rate(p, t, height, with_isobars=True)
+
+    out = {**_prefix(mu_cc, 'mu'), 'mu_mixing_ratio': mu_mixing_ratio,
+           **_prefix(m100_cc, 'mixed_100'), **_prefix(m50_cc, 'mixed_50')}
+    out.update({f'{name}_lifted_index': v for name, v in li.items()})
+    out.update({f'{name}_dci': diag.deep_convective_index(
+        p, t, dew, v, anchors_850=anchors_850)['dci']
+        for name, v in li.items()})
+    out['lapse_rate_700_500'] = lapse
+    out['temp_500'] = temp_500
+    out['freezing_level'] = diag.freezing_level_height(t, height)
+    out['melting_level'] = diag.melting_level_height(p, t, dew, height)[0]
+    out.update(_shear(dat))
+    return out if ignore_nans else _mask_invalid(out, valid)
+
+
+def min_conv_properties(dat, tables=None, moist_lapse=None):
+    """The reduced diagnostics set on the modular path: mixed-100 CAPE/CIN
+    and lifted index, 700-500 hPa lapse rate, 500 hPa temperature,
+    freezing/melting level heights and 0-6 km shear.  As in the JAX
+    package, no valid-column mask: NaN levels propagate through each
+    output's own NaN rules."""
+    p, t = dat['pressure'], dat['temperature']
+    dew = thermo.dewpoint_from_specific_humidity(p, t,
+                                                 dat['specific_humidity'])
+    m100_cc, m100_prof, _ = mixed_layer_cape_cin(
+        p, t, dew, depth=100.0, tables=tables, moist_lapse=moist_lapse)
+    out = _prefix(m100_cc, 'mixed_100')
+    out['mixed_100_lifted_index'] = diag.lifted_index(m100_prof)[
+        'lifted_index']
+    height = dat['height_asl']
+    lapse, _, temp_500 = diag.lapse_rate(p, t, height, with_isobars=True)
+    out['lapse_rate_700_500'] = lapse
+    out['temp_500'] = temp_500
+    out['freezing_level'] = diag.freezing_level_height(t, height)
+    out['melting_level'] = diag.melting_level_height(p, t, dew, height)[0]
+    out.update(_shear(dat))
+    return out
 
 
 def _fused_solve(fields, parcel, tables):
@@ -40,7 +141,8 @@ def _shear(dat):
                            shear_height=6000.0)
 
 
-def conv_properties_fused(dat, ignore_nans=False, tables=None):
+def conv_properties_fused(dat, ignore_nans=False, tables=None,
+                          mix_grow=False):
     """The full ~20-variable diagnostics set for every column: CAPE/CIN,
     lifted index and DCI of the most-unstable, mixed-100 and mixed-50
     parcels, the most-unstable mixing ratio, 700-500 hPa lapse rate, 500 hPa
@@ -49,14 +151,11 @@ def conv_properties_fused(dat, ignore_nans=False, tables=None):
     Three fused CAPE/CIN solves and one diagnostics tail run per call; the
     lifted index comes from inside each solve.  Unless ``ignore_nans``,
     every output is NaN (booleans False) in a column where any input level
-    is NaN.
+    is NaN.  ``mix_grow`` splices the mixed parcels in as an extra level
+    (``mix_layer(grow=True)``, L+1 levels) instead of the default slot
+    write: the same profile, at the cost of the splice.
     """
-    p = dat['pressure']
-    t = dat['temperature']
-    q = dat['specific_humidity']
-    dew = thermo.dewpoint_from_specific_humidity(p, t, q)
-    valid = ~(torch.isnan(dew).any(-1) | torch.isnan(p).any(-1) |
-              torch.isnan(t).any(-1) | torch.isnan(q).any(-1))
+    p, t, dew, valid = _dewpoint_and_valid(dat)
 
     mu_fields, mu_parcel = from_most_unstable_parcel(p, t, dew, depth=250.0)
     mu = _fused_solve(mu_fields, mu_parcel, tables)
@@ -64,10 +163,12 @@ def conv_properties_fused(dat, ignore_nans=False, tables=None):
     nbrs = bridge_neighbors(p, ~(torch.isnan(p) | torch.isnan(t) |
                                  torch.isnan(dew)))
     m100_fields, m100_parcel = mix_layer(p, t, dew, depth=100.0,
-                                         conserved=cons, neighbors=nbrs)
+                                         conserved=cons, neighbors=nbrs,
+                                         grow=mix_grow)
     m100 = _fused_solve(m100_fields, m100_parcel, tables)
     m50_fields, m50_parcel = mix_layer(p, t, dew, depth=50.0,
-                                       conserved=cons, neighbors=nbrs)
+                                       conserved=cons, neighbors=nbrs,
+                                       grow=mix_grow)
     m50 = _fused_solve(m50_fields, m50_parcel, tables)
 
     mu_mixing_ratio = thermo.mixing_ratio_from_specific_humidity(
@@ -98,12 +199,7 @@ def conv_properties_fused(dat, ignore_nans=False, tables=None):
         'melting_level': mlh,
     }
     out.update(_shear(dat))
-
-    if not ignore_nans:
-        for k, v in out.items():
-            fill = False if v.dtype == torch.bool else torch.nan
-            out[k] = torch.where(valid, v, fill)
-    return out
+    return out if ignore_nans else _mask_invalid(out, valid)
 
 
 def min_conv_properties_fused(dat, tables=None):
@@ -120,7 +216,7 @@ def min_conv_properties_fused(dat, tables=None):
     q = dat['specific_humidity']
     dew = thermo.dewpoint_from_specific_humidity(p, t, q)
 
-    m100_fields, m100_parcel = mix_layer(p, t, dew, depth=100.0)
+    m100_fields, m100_parcel = mix_layer(p, t, dew, depth=100.0, grow=False)
     res = _fused_solve(m100_fields, m100_parcel, tables)
     _, _, lapse, temp_500, flh, mlh = diag.diag_fused(p, t, dew,
                                                       dat['height_asl'])

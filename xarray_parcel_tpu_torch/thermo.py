@@ -38,6 +38,19 @@ def saturation_mixing_ratio(pressure, temperature):
         saturation_vapor_pressure(temperature), pressure)
 
 
+def relative_humidity_from_dewpoint(temperature, dewpoint_temperature):
+    """RH (0-1) from temperature and dewpoint [K]."""
+    return (saturation_vapor_pressure(dewpoint_temperature) /
+            saturation_vapor_pressure(temperature))
+
+
+def mixing_ratio_from_relative_humidity(pressure, temperature,
+                                        relative_humidity):
+    """MetPy-1.4.1 approximate form w = RH * w_s (not the exact
+    inversion)."""
+    return relative_humidity * saturation_mixing_ratio(pressure, temperature)
+
+
 def mixing_ratio(temperature, dewpoint_temperature, pressure):
     """RH-route mixing ratio, MetPy-1.4.1 approximate form, algebraically
     fused: eps * svp(td) / (p - svp(t))."""
@@ -107,6 +120,11 @@ def dewpoint_from_specific_humidity(pressure, temperature, specific_humidity):
     rh = relative_humidity_from_specific_humidity(pressure, temperature,
                                                   specific_humidity)
     return dewpoint_from_relative_humidity(temperature, rh)
+
+
+def dry_lapse(pressure, parcel_temperature, parcel_pressure):
+    """Poisson dry adiabat: T * (p / p0)^kappa."""
+    return parcel_temperature * (pressure / parcel_pressure) ** c.kappa
 
 
 def moist_lapse_rate(pressure, temperature):
