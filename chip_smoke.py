@@ -4,10 +4,13 @@
 
 Builds the port's CUDA kernels from ``xarray_parcel_tpu_torch/csrc`` with
 ``nvcc`` (the CAPE/CIN solve ``fused_cape.cu`` and the diagnostics tail
-``diag_tail.cu``), builds the moist-adiabat coefficients on the card, holds
-each kernel against its plain PyTorch twin (float64 and float32 on hard
-columns; the solve also with its profile tracks), then times both at the
-main path's shape and holds the timed outputs against each other there.
+``diag_tail.cu``; ptxas's registers and spills are printed), builds the
+moist-adiabat coefficients on the card, holds each kernel against its plain
+PyTorch twin (float64 and float32 on hard columns of 90 levels, and of 33
+and 137 levels with the hard cases across the lanes 31/32 and 63/64 of the
+warp that strides over a column; the solve also with its profile tracks),
+then times both at the main path's shape against their bound and holds the
+timed outputs against each other there.
 Then it drives the public entry points -- ``fused_surface_cape_cin``,
 ``conv_properties_fused``, ``min_conv_properties_fused`` and
 ``storm_proxies`` -- at 786,432
@@ -36,16 +39,24 @@ import torch
 import xarray_parcel_tpu_torch as xt
 from xarray_parcel_tpu_torch import _build, adiabat, fused, parcels
 from xarray_parcel_tpu_torch import diagnostics as diag
+from xarray_parcel_tpu_torch.lcl import lcl
 
 MAIN_COLUMNS = 786_432          # the pipeline batch of the TPU-era bench
 LEVELS = 90
 CHECK_COLUMNS = 4096            # subsample held against the CPU plain path
 HARD_COLUMNS = 2055             # x4 parcel variants: 8,220 columns
 TAIL_COLUMNS = 4099             # hard columns of the tail check
+EDGE_LEVELS = (33, 137)         # other widths, around the lanes' wrap
+EDGE_COLUMNS = 1031             # x4 parcel variants for the solve
+kWarp = 32                      # lanes of a warp, each striding over levels
 GOLDEN = dict(cape=230.20, cin=-58.07, tol=0.5)
 F64_ATOL = 1e-6
 # float32 budget (docs/performance.md): relative to each output's scale.
 F32_P95, F32_MAX, F32_NAN_FLIPS = 1e-4, 5e-4, 0.01
+# One H100 SXM's published peaks (NVIDIA's data sheet, at 700 W): HBM3
+# bandwidth, and FP32 and FP64 without the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS = {torch.float32: 67e12, torch.float64: 34e12}
 
 
 def log(msg):
@@ -84,6 +95,15 @@ def synthetic(batch, L=LEVELS, seed=0):
     }, td
 
 
+def _sounding(p, rng):
+    """Environment t and td (float64) for pressures ``p``, as
+    :func:`hard_columns` makes them."""
+    t = 302.0 - 76.0 * (1.0 - (p / 1010.0) ** 0.3) + rng.normal(0, 2, p.shape)
+    td = (t - np.abs(rng.normal(2.0, 2.0, p.shape)) - 0.2
+          - 15.0 * (1.0 - p / 1010.0) ** 2)
+    return t, td
+
+
 def hard_columns(n, L=LEVELS, seed=7):
     """Convective soundings (float64) with the cases the kernel must get
     right: poisoned temperature columns, a NaN surface dewpoint, NaN
@@ -93,9 +113,7 @@ def hard_columns(n, L=LEVELS, seed=7):
     rng = np.random.default_rng(seed)
     p = np.linspace(1010.0, 150.0, L) + rng.normal(0, 0.4, (n, L))
     p = -np.sort(-p, axis=-1)
-    t = 302.0 - 76.0 * (1.0 - (p / 1010.0) ** 0.3) + rng.normal(0, 2, (n, L))
-    td = (t - np.abs(rng.normal(2.0, 2.0, (n, L))) - 0.2
-          - 15.0 * (1.0 - p / 1010.0) ** 2)
+    t, td = _sounding(p, rng)
     k = n // 20
     r = rng.permutation(n)
     t[r[:k]] = np.nan
@@ -159,6 +177,116 @@ def tail_columns(n, L=LEVELS, seed=11):
     p[g], t[g], td[g], h[g] = (x[g, ::-1] for x in (p, t, td, h))
     g = groups[13][:3]                     # all-NaN columns
     p[g] = t[g] = td[g] = h[g] = np.nan
+    return p, t, td, h
+
+
+def lane_edges(L):
+    """The level indices where a warp's lanes wrap (31/32, 63/64) that a
+    column of L levels has."""
+    return [e for e in (kWarp - 1, kWarp, 2 * kWarp - 1, 2 * kWarp) if e < L]
+
+
+def lane_edge_columns(n, L=LEVELS, seed=19):
+    """:func:`hard_columns` plus columns whose hard cases straddle the lanes
+    31/32 and 63/64 of a warp that strides over the levels: the LCL slot
+    at an edge (the surface parcel's LCL between levels e-1 and e),
+    duplicated levels across it, NaN gaps (pressure, temperature or
+    dewpoint) beside it, and a pressure pair repeated out of order
+    (P1 P2 P1 P2 P1 with equal temperatures), whose equal gaps give exactly
+    tied LFC and EL candidates in different lanes.  Float64 (p, t, td)."""
+    rng = np.random.default_rng(seed)
+    p, t, td = hard_columns(n, L=L, seed=seed)
+    edges = lane_edges(L)
+    if not edges:
+        return p, t, td
+    groups = np.array_split(rng.permutation(n), 8)
+    # The LCL slot at an edge: fresh columns with e levels at or below it.
+    g = groups[0]
+    p[g] = np.linspace(1010.0, 150.0, L) + rng.normal(0, 0.4, (len(g), L))
+    p[g] = -np.sort(-p[g], axis=-1)
+    t[g], td[g] = _sounding(p[g], rng)
+    td[g, 0] = t[g, 0] - rng.uniform(3.0, 12.0, len(g))
+    lcl_p = lcl(*(torch.as_tensor(x[g, 0]) for x in (p, t, td)))[
+        'lcl_pressure'].numpy()
+    for k, c in enumerate(g):
+        e = edges[k % len(edges)]
+        p0 = p[c, 0]
+        p[c, :e] = np.linspace(p0, lcl_p[k] + 0.05, e)
+        p[c, e:] = np.linspace(lcl_p[k] - 0.05, 150.0, L - e)
+        t0, td0 = t[c, 0], td[c, 0]
+        t[c], td[c] = _sounding(p[c], rng)
+        t[c, 0], td[c, 0] = t0, td0
+    for k, c in enumerate(groups[1]):     # duplicated level across an edge
+        e = edges[k % len(edges)]
+        p[c, e] = p[c, e - 1]
+    for k, c in enumerate(groups[2]):     # NaN gaps beside an edge
+        e = edges[k % len(edges)]
+        (p, t, td)[k % 3][c, e - (k // 3) % 2] = np.nan
+    for k, c in enumerate(groups[3]):     # P1 P2 P1 P2 P1 across an edge
+        e = edges[k % len(edges)]
+        lo = max(e - 2, 1)
+        if lo + 5 > L:
+            continue
+        pair = p[c, lo:lo + 2].copy()
+        temps = (t[c, lo] + 8.0, t[c, lo + 1] - 8.0)
+        for r in range(5):
+            p[c, lo + r] = pair[r % 2]
+            t[c, lo + r] = temps[r % 2]
+            td[c, lo + r] = temps[r % 2] - 1.0
+    return p, t, td
+
+
+def lane_edge_args(n, tables, L=LEVELS, seed=19):
+    """The solve's packed arguments (:func:`kernel_args`) for
+    :func:`lane_edge_columns` of the tables' dtype and device, with, in a
+    few columns each, the first valid level k0 at L-1 and L-2 (the rest a
+    NaN prefix) and a NaN LCL pressure (every slot then the LCL's)."""
+    dtype, dev = tables.coeffs.dtype, tables.coeffs.device
+    cols = [torch.as_tensor(x, dtype=dtype, device=dev)
+            for x in lane_edge_columns(n, L=L, seed=seed)]
+    p, t, td, row, scalars, k0 = kernel_args(*cols, tables)
+    p, scalars, k0 = p.clone(), scalars.clone(), k0.clone()
+    for c, k in ((0, L - 1), (1, L - 2), (2, L - 1)):
+        p[c, :k] = torch.nan
+        k0[c] = k
+    scalars[3:6, 0] = torch.nan
+    return p, t, td, row, scalars, k0
+
+
+def lane_edge_tail_columns(n, L=LEVELS, seed=23):
+    """:func:`tail_columns` plus columns whose hard cases straddle the lanes
+    31/32 and 63/64: a level exactly at 850, 700 or 500 hPa at an edge,
+    duplicated across it; the 0 C crossing of T (and of the wet bulb) in
+    the gap across it, with a second, higher crossing so that the lowest
+    one must be found by value; NaN pressures and heights beside it; an
+    anchor level repeated 32 levels apart, so that one lane holds both.
+    Float64 (p, t, td, h)."""
+    rng = np.random.default_rng(seed)
+    p, t, td, h = tail_columns(n, L=L, seed=seed)
+    edges = lane_edges(L)
+    if not edges:
+        return p, t, td, h
+    groups = np.array_split(rng.permutation(n), 4)
+    if L > kWarp:                         # an anchor level twice, 32
+        for k, c in enumerate(groups[3]):  # levels apart: one lane holds both
+            j = k % (L - kWarp)
+            p[c, [j, j + kWarp]] = (850.0, 700.0, 500.0)[k % 3]
+    for k, c in enumerate(groups[0]):     # an anchor level at an edge
+        e = edges[k % len(edges)]
+        target = (850.0, 700.0, 500.0)[k % 3]
+        p[c, :e] = np.linspace(1010.0, target + 5.0, e)
+        p[c, e:] = np.linspace(target, 150.0, L - e)
+        if k % 2:
+            p[c, e - 1] = target          # duplicated across the edge
+    for k, c in enumerate(groups[1]):     # 0 C crossing across an edge
+        e = edges[k % len(edges)]
+        t[c] = 273.15 + 0.7 * (e - 0.5 - np.arange(L))
+        td[c] = t[c] - 0.5
+        hi = min(e + 3 + k % 5, L - 1)
+        t[c, hi:] += 10.0                 # a second crossing above
+    for k, c in enumerate(groups[2]):     # NaN beside an edge
+        e = edges[k % len(edges)]
+        (p, h)[k % 2][c, e - (k // 2) % 2] = np.nan
     return p, t, td, h
 
 
@@ -274,6 +402,40 @@ def compare(name, got, want, dtype_name):
                                  f'{p95:.3g}, max {rel.max().item():.3g} '
                                  f'over the float32 budget')
     return worst
+
+
+def bound(nbytes, ops, dtype):
+    """The least time the card could take for work that moves ``nbytes``
+    and does ``ops`` operations of ``dtype``: ``(ms, 'bytes' or
+    'operations')``, whichever of the two times is larger."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / PEAK_OPS[dtype] * 1e3
+    return (by_bytes, 'bytes') if by_bytes >= by_ops else (by_ops,
+                                                           'operations')
+
+
+def solve_work(p, t, td, row, scalars, k0):
+    """Bytes and operations the solve needs on these packed arguments:
+    each input read once and the seven outputs written once; for each
+    spliced slot evaluated (the levels of finite pressure and the LCL's),
+    the Clenshaw series (three per coefficient of a segment) and 70 more
+    (the log, four exp, five divides and the arithmetic around them, each
+    counted as one, and the slot's gap)."""
+    nbytes = sum(x.numel() * x.element_size()
+                 for x in (p, t, td, row, scalars, k0))
+    nbytes += len(fused.OUTPUTS) * p.shape[0] * p.element_size()
+    slots = int(torch.isfinite(p).sum()) + p.shape[0]
+    return nbytes, slots * (3 * (row.shape[-1] // adiabat.N_SEG) + 70)
+
+
+def tail_work(p, t, td, h):
+    """Bytes and operations of the tail on these inputs: four (B, L)
+    inputs read once, six (B,) outputs written once; about 30 operations
+    per level of finite pressure (its log, three anchor updates, the wet
+    bulb and two crossings)."""
+    nbytes = 4 * p.numel() * p.element_size()
+    nbytes += len(diag.DIAG_OUTPUTS) * p.shape[0] * p.element_size()
+    return nbytes, 30 * int(torch.isfinite(p).sum())
 
 
 def cuda_ms(fn, repeats):
@@ -399,13 +561,42 @@ def main():
         log(f'[4 tail {dname}] {TAIL_COLUMNS} hard columns x {LEVELS} vs '
             f'plain twin: max |diff| {tail_errs[dname]:.3g}')
 
+        # Other widths, with the hard cases across the lanes' wrap.
+        for L in EDGE_LEVELS:
+            args = lane_edge_args(EDGE_COLUMNS, tab, L=L)
+            got, prof = fused.cape_cin_kernel(*args, with_profile=True)
+            torch.cuda.synchronize()
+            want, want_prof = fused._column_outputs(*args, with_profile=True)
+            err = max(compare(f'kernel/{dname}/L={L}/',
+                              dict(zip(fused.OUTPUTS, got)),
+                              dict(zip(fused.OUTPUTS, want)), dname),
+                      compare(f'kernel/{dname}/L={L}/profile/',
+                              dict(zip(fused.PROFILE, prof)),
+                              dict(zip(fused.PROFILE, want_prof)), dname))
+            tail = [torch.as_tensor(x, dtype=dtype, device=dev)
+                    for x in lane_edge_tail_columns(EDGE_COLUMNS, L=L)]
+            got = diag.diag_kernel(*tail)
+            torch.cuda.synchronize()
+            terr = compare(f'tail/{dname}/L={L}/',
+                           dict(zip(diag.DIAG_OUTPUTS, got)),
+                           dict(zip(diag.DIAG_OUTPUTS, diag._diag_body(*tail))),
+                           dname)
+            errs[dname] = max(errs[dname], err)
+            tail_errs[dname] = max(tail_errs[dname], terr)
+            log(f'[4 lanes {dname} L={L}] {args[0].shape[0]} solve and '
+                f'{EDGE_COLUMNS} tail columns with the hard cases across '
+                f'lanes 31/32 and 63/64 vs plain twins: solve and tracks '
+                f'max |diff| {err:.3g}, tail {terr:.3g}')
+
     # Kernels and twins timed at the main path's shape, in turns.
     dat_np, td_main = synthetic(MAIN_COLUMNS)
     p, t, h = (torch.as_tensor(dat_np[k], device=dev)
                for k in ('pressure', 'temperature', 'height_asl'))
     td = torch.as_tensor(td_main, device=dev)
-    margs = fused.prepass(p, p[:, 0], t[:, 0], td[:, 0], tab32)
-    margs = (p, t, td, *margs)
+    # Contiguous, as the kernels take them: the synthetic pressure is
+    # column-major, and the wrappers' copy would be timed with the kernel.
+    margs = tuple(x.contiguous() for x in (
+        p, t, td, *fused.prepass(p, p[:, 0], t[:, 0], td[:, 0], tab32)))
     # The timed outputs of each side are held against each other: every
     # block of the full grid, its ragged edge included.
     plain_a, want = cuda_ms(lambda: fused._column_outputs(*margs), 3)
@@ -417,13 +608,15 @@ def main():
     kernel_ms, plain_ms = (kern_a + kern_b) / 2, (plain_a + plain_b) / 2
     full_err = compare('kernel/main shape/', dict(zip(fused.OUTPUTS, got)),
                        dict(zip(fused.OUTPUTS, want)), 'float32')
+    solve_bound = bound(*solve_work(*margs), torch.float32)
     log(f'[4 timing] {MAIN_COLUMNS} x {LEVELS} float32: kernel '
         f'{kern_a:.3f}/{kern_b:.3f} ms ({prof_ms:.3f} ms with the profile '
-        f'tracks), plain twin {plain_a:.3f}/{plain_b:.3f} ms ({smi}); '
+        f'tracks), plain twin {plain_a:.3f}/{plain_b:.3f} ms, bound '
+        f'{solve_bound[0]:.3f} ms by {solve_bound[1]} ({smi}); '
         f'kernel vs twin there within the float32 budget, max |diff| '
         f'{full_err:.3g}')
     del margs, got, want
-    targs = (p, t, td, h)
+    targs = tuple(x.contiguous() for x in (p, t, td, h))
     tplain_a, want = cuda_ms(lambda: diag._diag_body(*targs), 3)
     tkern_a, got = cuda_ms(lambda: diag.diag_kernel(*targs), 10)
     tkern_b, _ = cuda_ms(lambda: diag.diag_kernel(*targs), 10)
@@ -431,11 +624,13 @@ def main():
     tail_ms, tail_plain_ms = (tkern_a + tkern_b) / 2, (tplain_a + tplain_b) / 2
     full_err = compare('tail/main shape/', dict(zip(diag.DIAG_OUTPUTS, got)),
                        dict(zip(diag.DIAG_OUTPUTS, want)), 'float32')
+    tail_bound = bound(*tail_work(*targs), torch.float32)
     log(f'[4 timing] tail {MAIN_COLUMNS} x {LEVELS} float32: kernel '
         f'{tkern_a:.3f}/{tkern_b:.3f} ms, plain twin {tplain_a:.3f}/'
-        f'{tplain_b:.3f} ms ({smi}); kernel vs twin there within the '
+        f'{tplain_b:.3f} ms, bound {tail_bound[0]:.3f} ms by '
+        f'{tail_bound[1]} ({smi}); kernel vs twin there within the '
         f'float32 budget, max |diff| {full_err:.3g}')
-    del got, want
+    del got, want, targs
 
     # 5. The main path, float32, full size: every entry point, each driven
     # with the launch counts set to 0 just before it and read just after.
@@ -659,6 +854,9 @@ def main():
         'max_abs_err_float32': errs['float32'],
         'ms': kernel_ms,
         'plain_ms': plain_ms,
+        'bound_ms': solve_bound[0],
+        'bound_by': solve_bound[1],
+        'library_ms': None,     # no single PyTorch call computes the solve
     }, {
         'name': 'diag_tail',
         'route': 'cuda',
@@ -669,6 +867,9 @@ def main():
         'max_abs_err_float32': tail_errs['float32'],
         'ms': tail_ms,
         'plain_ms': tail_plain_ms,
+        'bound_ms': tail_bound[0],
+        'bound_by': tail_bound[1],
+        'library_ms': None,     # nor the tail
     }]}
     log(json.dumps(record))
     log(json.dumps({'ok': True, 'device': {

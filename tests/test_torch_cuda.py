@@ -7,6 +7,7 @@ the JAX-configuring ``conftest.py``:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -29,20 +30,63 @@ def coeffs(device):
     return adiabat.build_spectral(device)
 
 
+# Widths around the lanes' wrap (a warp strides over a column's levels
+# 32 at a time) and the main path's 90.
+WIDTHS = [6, 31, 32, 33, 57, 90, 137]
+
+
+@pytest.mark.parametrize('L', WIDTHS)
 @pytest.mark.parametrize('dtype', [torch.float64, torch.float32])
-def test_kernel_matches_twin(device, coeffs, dtype):
+def test_kernel_matches_twin(device, coeffs, dtype, L):
     """Identical NaN patterns; float64 within 1e-6, float32 within the
-    float32 budget (chip_smoke.compare)."""
+    float32 budget (chip_smoke.compare), on hard columns whose LCL slot,
+    duplicated levels, NaN gaps and tied LFC/EL candidates straddle lanes
+    31/32 and 63/64, with flood, all-NaN and k0-near-L columns; 4 x 301
+    columns, not a multiple of the columns a block holds."""
     tables = AdiabatTables(coeffs.to(dtype))
-    cols = [torch.as_tensor(x, dtype=dtype, device=device)
-            for x in chip_smoke.hard_columns(301, L=57, seed=3)]
-    args = chip_smoke.kernel_args(*cols, tables)
+    args = chip_smoke.lane_edge_args(301, tables, L=L, seed=L)
     got = fused.cape_cin_kernel(*args)
     torch.cuda.synchronize()
     want = fused._column_outputs(*args)
     assert torch.equal(torch.isnan(got), torch.isnan(want))
     chip_smoke.compare('kernel', dict(zip(fused.OUTPUTS, got)),
                        dict(zip(fused.OUTPUTS, want)), str(dtype)[6:])
+
+
+def tall_columns(n, L, seed):
+    """``chip_smoke.synthetic_columns`` interpolated in log-pressure onto
+    L levels (float64 p, t, td): the same soundings, finely resolved."""
+    p, t, td = (x.astype(np.float64)
+                for x in chip_smoke.synthetic_columns(n, seed=seed))
+    fine = np.geomspace(p[0, 0], p[0, -1], L)
+    x, xs = np.log(p[0])[::-1], np.log(fine)[::-1]
+    return (np.broadcast_to(fine, (n, L)).copy(),
+            *(np.stack([np.interp(xs, x, v[::-1])[::-1] for v in f])
+              for f in (t, td)))
+
+
+def test_kernel_takes_any_width(device, coeffs):
+    """Columns too tall for one block's shared memory (12,000 float64
+    levels): their slots pass through the warp's buffer in windows; the
+    tail at the same width."""
+    tables = AdiabatTables(coeffs)
+    args = chip_smoke.kernel_args(*(
+        torch.as_tensor(x, device=device)
+        for x in tall_columns(3, 12_000, seed=2)), tables)
+    got, prof = fused.cape_cin_kernel(*args, with_profile=True)
+    torch.cuda.synchronize()
+    want, want_prof = fused._column_outputs(*args, with_profile=True)
+    chip_smoke.compare('kernel', dict(zip(fused.OUTPUTS, got)),
+                       dict(zip(fused.OUTPUTS, want)), 'float64')
+    chip_smoke.compare('profile', dict(zip(fused.PROFILE, prof)),
+                       dict(zip(fused.PROFILE, want_prof)), 'float64')
+    assert (got[0] > 0).any()                   # convective columns
+    cols = [torch.as_tensor(x, device=device)
+            for x in chip_smoke.tail_columns(5, L=12_000, seed=2)]
+    chip_smoke.compare('tail', dict(zip(diag.DIAG_OUTPUTS,
+                                        diag.diag_kernel(*cols))),
+                       dict(zip(diag.DIAG_OUTPUTS, diag._diag_body(*cols))),
+                       'float64')
 
 
 def test_launch_counter_and_empty_batch(device, coeffs):
@@ -74,17 +118,17 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(device, coeffs):
         fused.cape_cin_kernel(p, t, td, row[:, :40], scalars, k0)
 
 
+@pytest.mark.parametrize('L', WIDTHS)
 @pytest.mark.parametrize('dtype', [torch.float64, torch.float32])
-def test_profile_tracks_match_twin(device, coeffs, dtype):
+def test_profile_tracks_match_twin(device, coeffs, dtype, L):
     """The solve's profile tracks against the twin's, and the lifted index
-    interpolated from them against the in-kernel one."""
+    interpolated from them against the in-kernel one, on the columns of
+    test_kernel_matches_twin."""
     tables = AdiabatTables(coeffs.to(dtype))
-    cols = [torch.as_tensor(x, dtype=dtype, device=device)
-            for x in chip_smoke.hard_columns(301, L=57, seed=3)]
-    args = chip_smoke.kernel_args(*cols, tables)
+    args = chip_smoke.lane_edge_args(301, tables, L=L, seed=L)
     out, prof = fused.cape_cin_kernel(*args, with_profile=True)
     torch.cuda.synchronize()
-    assert prof.shape == (3, args[0].shape[0], 58)
+    assert prof.shape == (3, args[0].shape[0], L + 1)
     assert torch.equal(out.nan_to_num(7.0),
                        fused.cape_cin_kernel(*args).nan_to_num(7.0))
     _, want = fused._column_outputs(*args, with_profile=True)
@@ -141,10 +185,14 @@ def test_tail_gradient_matches_twin(device):
     chip_smoke.compare_grads('tail gradient', got, want)
 
 
+@pytest.mark.parametrize('L', WIDTHS)
 @pytest.mark.parametrize('dtype', [torch.float64, torch.float32])
-def test_tail_kernel_matches_twin(device, dtype):
+def test_tail_kernel_matches_twin(device, dtype, L):
+    """Identical NaN patterns and chip_smoke.compare's bounds, on hard
+    tail columns whose anchor levels, 0 C crossings and NaN levels
+    straddle lanes 31/32 and 63/64; 517 columns."""
     cols = [torch.as_tensor(x, dtype=dtype, device=device)
-            for x in chip_smoke.tail_columns(517, L=61, seed=5)]
+            for x in chip_smoke.lane_edge_tail_columns(517, L=L, seed=L)]
     got = diag.diag_kernel(*cols)
     torch.cuda.synchronize()
     want = torch.stack(diag._diag_body(*cols))

@@ -55,6 +55,19 @@ def test_diag_body_matches_jax(body, i):
     assert_same(want[i], got[i], name=OUTPUTS[i])
 
 
+@pytest.mark.parametrize('L', [33, 137])
+def test_diag_body_matches_jax_at_lane_edges(L):
+    """Widths around the wrap of the warp that strides over a column on the
+    card, on columns whose anchor levels, 0 C crossings and NaN levels
+    straddle levels 31/32 and 63/64 (``chip_smoke.lane_edge_tail_columns``):
+    the twin that judges the tail kernel there, held to JAX."""
+    want, got = both_tails(jtail._diag_body, tdiag._diag_body,
+                           chip_smoke.lane_edge_tail_columns(40, L=L, seed=L))
+    for i, name in enumerate(OUTPUTS):
+        assert got[i].shape == (40,)
+        assert_same(want[i], got[i], name=name)
+
+
 def test_tail_cases_are_exercised(body):
     _, got = body
     t850, _, lapse, t500, flh, mlh = got

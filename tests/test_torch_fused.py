@@ -19,6 +19,7 @@ from xarray_parcel_tpu_torch import AdiabatTables
 from xarray_parcel_tpu_torch import diagnostics as tdiag
 from xarray_parcel_tpu_torch import fused as tfused
 
+import chip_smoke
 from test_torch_ops import assert_same, to_torch
 
 ATOL = 1e-6
@@ -101,6 +102,20 @@ def test_surface_matches_jax(surface, key):
     want, got = surface
     assert got[key].shape == (64,) and got[key].dtype == torch.float64
     assert_same(want[key], got[key], atol=ATOL, rtol=0, name=key)
+
+
+@pytest.mark.parametrize('L', [33, 137])
+def test_surface_matches_jax_at_lane_edges(jax_tables, tables, L):
+    """Widths around the wrap of the warp that strides over a column on the
+    card, 32 levels at a time, on columns whose LCL slot, duplicated
+    levels, NaN gaps and tied LFC/EL candidates straddle levels 31/32 and
+    63/64 (``chip_smoke.lane_edge_columns``): the plain twin that judges
+    the CUDA kernel there is itself held to JAX."""
+    want, got = run_both(jax_tables, tables,
+                         *chip_smoke.lane_edge_columns(24, L=L, seed=L))
+    for key in KEYS:
+        assert_same(want[key], got[key], atol=ATOL, rtol=0, name=key)
+    assert torch.isfinite(got['lfc_pressure']).sum() > 5
 
 
 def test_surface_cases_are_exercised(surface):

@@ -1,6 +1,8 @@
 // Device helpers shared by the port's kernels (fused_cape.cu, diag_tail.cu):
 // the working type's transcendentals, NaN and infinity, the NaN-keeping
-// sign, and the duplicate-aware running anchors of ops/interp.py.
+// sign, the warp reductions both kernels use (one warp solves one column,
+// its lanes striding over the column's levels), and the duplicate-aware
+// interpolation anchors of ops/interp.py.
 //
 // The helpers sit in an anonymous namespace, so every kernel file that
 // includes them keeps its own internal copies.  _build.py hashes this file
@@ -73,46 +75,165 @@ __device__ __forceinline__ T or_nan(T v, T sentinel) {
   return v == sentinel ? Num<T>::nan() : v;
 }
 
-// Running interpolation anchors of two variables at one log-pressure
-// target (ops/interp.py interp_many with log=True): the closest
-// log-pressure at or above and at or below the target, with the sums and
-// counts of each variable's non-NaN values there -- reset when a closer
-// anchor appears, ties folded in, so duplicate levels average.
+// --- warp reductions (every lane of the warp must take part) -----------------
+// Butterfly (xor) reductions: every lane ends with the result, and because
+// each step combines a pair commutatively, every lane ends with the same
+// bits.  None of them is given a NaN: the kernels reduce sentinels
+// (+-inf, 0) and map them to NaN afterwards, as their serial loops did.
+
+constexpr unsigned kFullMask = 0xffffffffu;
+constexpr int kWarp = 32;
+
+__device__ __forceinline__ int lane_id() { return threadIdx.x % kWarp; }
+
+template <typename T> __device__ __forceinline__ T shfl_xor(T v, int m) {
+  return __shfl_xor_sync(kFullMask, v, m);
+}
+
+template <typename T> __device__ __forceinline__ T warp_min(T v) {
+  for (int m = kWarp / 2; m > 0; m >>= 1) {
+    const T o = shfl_xor(v, m);
+    v = o < v ? o : v;
+  }
+  return v;
+}
+
+template <typename T> __device__ __forceinline__ T warp_max(T v) {
+  for (int m = kWarp / 2; m > 0; m >>= 1) {
+    const T o = shfl_xor(v, m);
+    v = o > v ? o : v;
+  }
+  return v;
+}
+
+template <typename T> __device__ __forceinline__ T warp_sum(T v) {
+  for (int m = kWarp / 2; m > 0; m >>= 1) v += shfl_xor(v, m);
+  return v;
+}
+
+__device__ __forceinline__ bool warp_any(bool b) {
+  return __any_sync(kFullMask, b);
+}
+
+__device__ __forceinline__ unsigned warp_ballot(bool b) {
+  return __ballot_sync(kFullMask, b);
+}
+
+// Sum of a per-lane partial that only the lanes in `holders` can have
+// made non-zero (every other lane's is 0): zero when no lane holds one, a
+// broadcast from the lane that does in the usual case of one, else the
+// warp sum -- the same bits as a warp sum of every lane's partial.
+template <typename T>
+__device__ __forceinline__ T held_sum(T v, unsigned holders) {
+  if (holders == 0) return T(0);
+  if (__popc(holders) == 1) return __shfl_sync(kFullMask, v, __ffs(holders) - 1);
+  return warp_sum((holders >> lane_id()) & 1u ? v : T(0));
+}
+
+// Extremal x with the largest y among the entries at it (the serial loops'
+// tie_max rule): the x furthest in the direction `kMax` wins, and the
+// lanes at it give the largest y.  y is never NaN here (-inf stands for an
+// all-NaN tie).
+template <bool kMax, typename T>
+__device__ __forceinline__ void warp_tie(T& x, T& y) {
+  const T best = kMax ? warp_max(x) : warp_min(x);
+  const unsigned at = warp_ballot(x == best);
+  y = __popc(at) == 1 ? __shfl_sync(kFullMask, y, __ffs(at) - 1)
+                      : warp_max(x == best ? y : -Num<T>::inf());
+  x = best;
+}
+
+// Interpolation anchors of two variables at one log-pressure target
+// (ops/interp.py interp_many with log=True): the closest log-pressure at
+// or above and at or below the target, with the sums and counts of each
+// variable's non-NaN values there, so that duplicate levels average.
+// Found across a warp in four steps, which keep few registers live while
+// the lanes walk their levels:
+//   bound()   each lane, over its levels: its closest log-pressures and the
+//             first of its levels at each;
+//   reduce()  the warp's extremes are the column's anchors;
+//   gather()  the lanes holding a level there add its values, read by its
+//             index; a lane with more than one (duplicates 32 levels
+//             apart) walks its levels again;
+//   finish()  the sums of the lanes at each anchor -- usually one lane,
+//             whose sums are broadcast.
+// Only the order of the sums over duplicates in different lanes can differ
+// from the serial fold over the levels.
 template <typename T> struct Anchors {
   T at;                  // the target, already in log space (NaN: none)
   T cb, ca;              // closest log-pressure >= at, and <= at
   T sb[2], sa[2];        // sums of each variable's non-NaN values there
   int nb[2], na[2];
+  int ib, ia;            // this lane's first level at cb, at ca
+  bool db, da;           // ... and whether it has another there
+  bool hb, ha;           // this lane holds the column's cb, ca
 
   __device__ explicit Anchors(T log_target) : at(log_target) {
     cb = Num<T>::inf();
     ca = -Num<T>::inf();
+    ib = ia = 0;
+    db = da = false;
     for (int v = 0; v < 2; ++v) {
       sb[v] = sa[v] = T(0);
       nb[v] = na[v] = 0;
     }
   }
 
-  // Level with log-pressure lp (NaN never anchors) and values x0, x1.
-  __device__ void add(T lp, T x0, T x1) {
-    const T x[2] = {x0, x1};
+  // Level i, of log-pressure lp (NaN never anchors).
+  __device__ void bound(T lp, int i) {
     if (lp >= at) {
       if (lp < cb) {
         cb = lp;
-        for (int v = 0; v < 2; ++v) { sb[v] = T(0); nb[v] = 0; }
+        ib = i;
+        db = false;
+      } else if (lp == cb) {
+        db = true;
       }
-      if (lp == cb)
-        for (int v = 0; v < 2; ++v)
-          if (!isnan_(x[v])) { sb[v] += x[v]; ++nb[v]; }
     }
     if (lp <= at) {
       if (lp > ca) {
         ca = lp;
-        for (int v = 0; v < 2; ++v) { sa[v] = T(0); na[v] = 0; }
+        ia = i;
+        da = false;
+      } else if (lp == ca) {
+        da = true;
       }
-      if (lp == ca)
-        for (int v = 0; v < 2; ++v)
-          if (!isnan_(x[v])) { sa[v] += x[v]; ++na[v]; }
+    }
+  }
+
+  __device__ void reduce() {
+    const T inf = Num<T>::inf();
+    const T gb = warp_min(cb), ga = warp_max(ca);
+    hb = gb != inf && cb == gb;
+    ha = ga != -inf && ca == ga;
+    cb = gb;
+    ca = ga;
+  }
+
+  // The column's rows: log-pressures from p, the variables x0 and x1.
+  __device__ void gather(const T* p, const T* x0, const T* x1, int L) {
+    if (hb && !db) add(sb, nb, x0[ib], x1[ib]);
+    if (ha && !da) add(sa, na, x0[ia], x1[ia]);
+    if ((hb && db) || (ha && da))
+      for (int i = lane_id(); i < L; i += kWarp) {
+        const T lp = dlog(p[i]);
+        if (hb && db && lp == cb) add(sb, nb, x0[i], x1[i]);
+        if (ha && da && lp == ca) add(sa, na, x0[i], x1[i]);
+      }
+  }
+
+  static __device__ void add(T* s, int* n, T x0, T x1) {
+    if (!isnan_(x0)) { s[0] += x0; ++n[0]; }
+    if (!isnan_(x1)) { s[1] += x1; ++n[1]; }
+  }
+
+  __device__ void finish() {
+    const unsigned lanes_b = warp_ballot(hb), lanes_a = warp_ballot(ha);
+    for (int v = 0; v < 2; ++v) {
+      sb[v] = held_sum(sb[v], lanes_b);
+      nb[v] = held_sum(nb[v], lanes_b);
+      sa[v] = held_sum(sa[v], lanes_a);
+      na[v] = held_sum(na[v], lanes_a);
     }
   }
 

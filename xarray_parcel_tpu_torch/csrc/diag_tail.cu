@@ -10,20 +10,30 @@
 //   freezing      the lowest height where T crosses 273.15 K;
 //   melting       the same for the Knox one-third wet bulb.
 //
-// Design: one thread per column and one pass over its levels.  The three
-// interpolation targets keep running anchors (Anchors in column.cuh, which
-// fused_cape.cu pass A uses for the LCL).  The two crossing sets keep the
-// running minimum crossing height over all gaps, by value, as nanmin over
-// find_intersections does: not the first crossing from the bottom.  The
-// ragged edge (any B, any L) is masked here; the TPU form's fixed
+// What bounds it: device memory.  The kernel must read p, t, td and h
+// once, 16 bytes (float32) per level and column, and write 6 values per
+// column: at 786,432 x 90 float32 that is 1,151 MB, 0.34 ms at 3.35 TB/s.
+// The arithmetic is a log and a few dozen flops per level.
+//
+// Design: one warp per column, XPT_TAIL_WARPS columns a block.  Lane l
+// takes levels l, l+32, l+64, ..., so every load of the warp is one
+// contiguous run of the row.  In the one pass over the levels each lane
+// keeps its closest levels to the three interpolation targets (Anchors in
+// column.cuh, which fused_cape.cu pass A uses for the LCL) and folds the
+// freezing and melting crossings of the gaps it owns, taking the level
+// below from its neighbour lane (lane 0 from lane 31 of the previous
+// stride), into a running minimum crossing height, by value, as nanmin
+// over find_intersections does: not the first crossing from the bottom.
+// The warp then reduces them; the lanes holding a level at an anchor sum
+// its values, and lanes 0-5 compute the six outputs side by side.  The
+// ragged edges (any B, any L) are masked here; the TPU form's fixed
 // (256, 90) blocks are not carried over.
 //
-// What bounds it: memory.  The kernel reads p, t, td and h once, 16 bytes
-// (float32) per level and column, and writes 6 values per column; the
-// arithmetic is a log and a few dozen flops per level.  Thread i reads row
-// i of the row-major (B, L) inputs, so neighbouring threads touch
-// addresses L elements apart and rely on L1 to reuse each line; coalesced
-// or shared-memory staged loads are later work.
+// What limits it (kernel_ab.py on an H100 at 700 W): 1.35 ms at the shape
+// above, four times the bound.  The per-column reductions and epilogue,
+// which the warp does once for all its lanes, are about 70% of it (1.22
+// ms at L = 45, 1.35 at 90, 1.82 at 180).  8 columns a block measured the
+// same in float32 (1.34 ms) and slower in float64 (2.59 against 2.24 ms).
 //
 // Built with -fmad=false (see _build.py): the crossing heights and the
 // anchor selections compare values that the twin computes op by op.
@@ -33,8 +43,13 @@
 
 #include "column.cuh"
 
+#ifndef XPT_TAIL_WARPS
+#define XPT_TAIL_WARPS 4    // columns per block (128 threads)
+#endif
+
 namespace {
 
+constexpr int kWarps = XPT_TAIL_WARPS;
 constexpr double kZeroC = 273.15;
 
 // Fold the crossing of d = curve - 273.15 over height in the gap between
@@ -54,56 +69,104 @@ __device__ __forceinline__ void lowest_crossing(T d0, T h0, T d1, T h1,
 }
 
 template <typename T>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(kWarps * kWarp)
 diag_tail_kernel(const T* __restrict__ p, const T* __restrict__ t,
                  const T* __restrict__ td, const T* __restrict__ h,
                  T* __restrict__ out, int64_t B, int L) {
-  const int64_t col = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (col >= B) return;
-  const T inf = Num<T>::inf();
+  const int lane = threadIdx.x % kWarp;
+  const int64_t col = (int64_t)blockIdx.x * kWarps + threadIdx.x / kWarp;
+  if (col >= B) return;   // the whole warp: no lane is left to reduce with
+  const T nan = Num<T>::nan(), inf = Num<T>::inf();
   const T* pc = p + col * L;
   const T* tc = t + col * L;
   const T* tdc = td + col * L;
   const T* hc = h + col * L;
 
+  // One pass over the levels: the anchors' bounds and the crossings.
   Anchors<T> a850(dlog(T(850))), a700(dlog(T(700))), a500(dlog(T(500)));
   T freezing = inf, melting = inf;
-  T dt_prev = Num<T>::nan(), dw_prev = Num<T>::nan(), h_prev = Num<T>::nan();
-  for (int i = 0; i < L; ++i) {
-    const T pi = pc[i], ti = tc[i], tdi = tdc[i], hi = hc[i];
-    const T lp = dlog(pi);
-    a850.add(lp, ti, tdi);
-    a700.add(lp, ti, hi);
-    a500.add(lp, ti, hi);
+  T dt_below = nan, dw_below = nan, h_below = nan;   // level base - 1
+  for (int base = 0; base < L; base += kWarp) {
+    const int i = base + lane;
+    const bool in = i < L;
+    const T pi = in ? pc[i] : nan, ti = in ? tc[i] : nan;
+    const T tdi = in ? tdc[i] : nan, hi = in ? hc[i] : nan;
+    const T lp = dlog(pi);            // NaN past the end: never anchors
+    a850.bound(lp, i);
+    a700.bound(lp, i);
+    a500.bound(lp, i);
     const T dt = ti - T(kZeroC);
     const T wet_bulb = ti - T(1.0 / 3.0) * (ti - tdi);
     const T dw = wet_bulb - T(kZeroC);
-    if (i > 0) {
-      lowest_crossing(dt_prev, h_prev, dt, hi, freezing);
-      lowest_crossing(dw_prev, h_prev, dw, hi, melting);
+    // The level below: the neighbour lane's, or the previous stride's last.
+    T dt0 = __shfl_up_sync(kFullMask, dt, 1);
+    T dw0 = __shfl_up_sync(kFullMask, dw, 1);
+    T h0 = __shfl_up_sync(kFullMask, hi, 1);
+    if (lane == 0) {
+      dt0 = dt_below;
+      dw0 = dw_below;
+      h0 = h_below;
     }
-    dt_prev = dt;
-    dw_prev = dw;
-    h_prev = hi;
+    if (in && i > 0) {
+      lowest_crossing(dt0, h0, dt, hi, freezing);
+      lowest_crossing(dw0, h0, dw, hi, melting);
+    }
+    dt_below = __shfl_sync(kFullMask, dt, kWarp - 1);
+    dw_below = __shfl_sync(kFullMask, dw, kWarp - 1);
+    h_below = __shfl_sync(kFullMask, hi, kWarp - 1);
   }
+  freezing = warp_min(freezing);
+  melting = warp_min(melting);
 
-  const T t700 = a700.value(0), h700 = a700.value(1);
-  const T t500 = a500.value(0), h500 = a500.value(1);
-  T* o = out + col;
-  o[0 * B] = a850.value(0);
-  o[1 * B] = a850.value(1);
-  o[2 * B] = (t500 - t700) / ((h500 - h700) / T(1000));
-  o[3 * B] = t500;
-  o[4 * B] = or_nan(freezing, inf);
-  o[5 * B] = or_nan(melting, inf);
+  // The column's anchors; the lanes holding a level there add its values.
+  a850.reduce();
+  a700.reduce();
+  a500.reduce();
+  a850.gather(pc, tc, tdc, L);
+  a700.gather(pc, tc, hc, L);
+  a500.gather(pc, tc, hc, L);
+  a850.finish();
+  a700.finish();
+  a500.finish();
+
+  // Lane v < 6 interpolates variable v % 2 at anchor v / 2 (t850, td850,
+  // t700, h700, t500, h500): one instruction stream for all six.
+  const bool odd = lane & 1;
+  auto pick = [&](auto x850, auto x700, auto x500) {
+    return lane < 2 ? x850 : (lane < 4 ? x700 : x500);
+  };
+  const T at = pick(a850.at, a700.at, a500.at);
+  const T cb = pick(a850.cb, a700.cb, a500.cb);
+  const T ca = pick(a850.ca, a700.ca, a500.ca);
+  const T sb = odd ? pick(a850.sb[1], a700.sb[1], a500.sb[1])
+                   : pick(a850.sb[0], a700.sb[0], a500.sb[0]);
+  const T sa = odd ? pick(a850.sa[1], a700.sa[1], a500.sa[1])
+                   : pick(a850.sa[0], a700.sa[0], a500.sa[0]);
+  const int nb = odd ? pick(a850.nb[1], a700.nb[1], a500.nb[1])
+                     : pick(a850.nb[0], a700.nb[0], a500.nb[0]);
+  const int na = odd ? pick(a850.na[1], a700.na[1], a500.na[1])
+                     : pick(a850.na[0], a700.na[0], a500.na[0]);
+  const T x = interp_sums(sb, nb, sa, na,
+                          anchor_frac(at, or_nan(cb, inf), or_nan(ca, -inf)));
+  const T t700 = __shfl_sync(kFullMask, x, 2);
+  const T h700 = __shfl_sync(kFullMask, x, 3);
+  const T t500 = __shfl_sync(kFullMask, x, 4);
+  const T h500 = __shfl_sync(kFullMask, x, 5);
+  // Lane r writes output row r.
+  T o = x;                                               // t850, td850
+  if (lane == 2) o = (t500 - t700) / ((h500 - h700) / T(1000));
+  if (lane == 3) o = t500;
+  if (lane == 4) o = or_nan(freezing, inf);
+  if (lane == 5) o = or_nan(melting, inf);
+  if (lane < 6) out[lane * B + col] = o;
 }
 
 template <typename T>
 int launch(const void* p, const void* t, const void* td, const void* h,
            void* out, int64_t B, int L, void* stream) {
-  const int threads = 128;
-  const unsigned blocks = (unsigned)((B + threads - 1) / threads);
-  diag_tail_kernel<T><<<blocks, threads, 0, (cudaStream_t)stream>>>(
+  const int64_t blocks = (B + kWarps - 1) / kWarps;
+  diag_tail_kernel<T><<<(unsigned)blocks, kWarps * kWarp, 0,
+                        (cudaStream_t)stream>>>(
       (const T*)p, (const T*)t, (const T*)td, (const T*)h, (T*)out, B, L);
   return (int)cudaGetLastError();
 }
