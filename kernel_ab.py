@@ -1,33 +1,28 @@
 """A/B timing of the port's CUDA kernels on one NVIDIA GPU.
 
-    python3 kernel_ab.py [--other NAME=DIR[:DEFINES] ...]
-                         [--variant NAME=DEFINES ...] [--levels 90 ...]
+    python3 kernel_ab.py [--other NAME=DIR ...] [--levels 90 ...]
 
-Builds kernel libraries with ``nvcc`` and the flags of ``_build.py`` into
-``build/kernel_ab/``, printing ptxas's registers, shared memory and spills
-for each:
-
-* ``--other parent=dist/parent[:DEFINES]``: the
-  ``xarray_parcel_tpu_torch/csrc`` of another tree with the same C
-  interface, for instance ``git archive`` of the parent commit unpacked
-  into ``dist/parent``;
-* ``--variant w4=XPT_SOLVE_WARPS=4,XPT_TAIL_WARPS=4``: this tree's sources
-  with the given macros defined (``--variant this=`` for none; the
-  default).
+Builds this tree's kernels and those of each ``--other`` tree with
+``_build.py``, printing ptxas's registers, shared memory and spills for
+each.  An other tree is a directory holding
+``xarray_parcel_tpu_torch/csrc`` with the same C interface: for instance
+``git archive`` of the parent commit unpacked into ``dist/parent``, or a
+copy of this tree with a kernel's block size changed.
 
 Then, at 786,432 columns (the ``chip_smoke.synthetic`` soundings, surface
 parcel) of the first width in ``--levels`` (90 by default), for the solve
 in float32 and float64 (also float32 with the profile tracks) and the tail
 in both, and for the solve and tail in float32 at every further width, it
-holds each library's outputs against the first library's (float64:
-identical NaN patterns and 1e-6; float32: the budget) and times each with
-CUDA events, the libraries in turns (a b c ... c b a).  The last line is one
-JSON object: each library's mean milliseconds per launch in each case, the
-case's bound (``chip_smoke.bound``) and the card's name and power limit.
+calls the wrappers ``fused.cape_cin_kernel`` and ``diagnostics.diag_kernel``
+with each tree's kernels (``_build.kernels_from``), holds each tree's
+outputs against the first tree's (float64: identical NaN patterns and
+1e-6; float32: the budget) and times each with CUDA events, the trees in
+turns (a b c ... c b a).  The last line is one JSON object: each tree's
+mean milliseconds per launch in each case, the case's bound
+(``chip_smoke.bound``) and the card's name and power limit.
 """
 
 import argparse
-import ctypes
 import json
 import os
 import subprocess
@@ -40,79 +35,34 @@ import xarray_parcel_tpu_torch as xt
 from xarray_parcel_tpu_torch import _build, fused
 from xarray_parcel_tpu_torch import diagnostics as diag
 
-OUT = os.path.join(os.path.dirname(_build.BUILD_DIR), 'kernel_ab')
 REPEATS = 10                    # launches timed per turn, after a warm-up
 
 
-def build(name, csrc, defines=()):
-    """Compile every ``csrc/*.cu`` into ``build/kernel_ab/lib<name>.so``
-    (one nvcc per source, together); returns the loaded library and the
-    ptxas report."""
-    os.makedirs(OUT, exist_ok=True)
-    nvcc = _build.find_nvcc()
-    srcs = sorted(os.path.join(csrc, f) for f in os.listdir(csrc)
-                  if f.endswith('.cu'))
-    objs = [os.path.join(OUT, f'{name}.{os.path.basename(s)}.o')
-            for s in srcs]
-    flags = [*_build.NVCC_FLAGS, *(f'-D{d}' for d in defines)]
-    report = _build._run_all([[nvcc, *flags, '-Xptxas', '-v', '-c', '-o', o,
-                               s] for s, o in zip(srcs, objs)])
-    path = os.path.join(OUT, f'lib{name}.so')
-    _build._run_all([[nvcc, '-shared', '-o', path, *objs]])
-    return ctypes.CDLL(path), report
-
-
-def call(lib, name, pointers, batch, *widths):
-    """``_build.launch`` on a given library."""
-    fn = getattr(lib, name)
-    fn.argtypes = ([ctypes.c_void_p] * len(pointers) + [ctypes.c_int64] +
-                   [ctypes.c_int] * len(widths) + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    err = fn(*pointers, batch, *widths,
-             torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f'{name}: CUDA error {err}')
-
-
-def solve(lib, args, with_profile):
+def solve(args, with_profile):
     """The solve's outputs by name, and with ``with_profile`` each track's
     every 17th value (``chip_smoke.compare`` takes a quantile, which a
     whole track is too long for)."""
-    p, t, td, row, scalars, k0 = args
-    B, L = p.shape
-    out = torch.empty((len(fused.OUTPUTS), B), dtype=p.dtype, device=p.device)
-    prof = (torch.empty((len(fused.PROFILE), B, L + 1), dtype=p.dtype,
-                        device=p.device) if with_profile else None)
-    suffix = 'f32' if p.dtype == torch.float32 else 'f64'
-    call(lib, f'fused_cape_cin_{suffix}',
-         [*(x.data_ptr() for x in args), out.data_ptr(),
-          None if prof is None else prof.data_ptr()], B, L, row.shape[-1])
-    got = dict(zip(fused.OUTPUTS, out))
-    if prof is not None:
-        got.update({k: v.flatten()[::17] for k, v in zip(fused.PROFILE, prof)})
-    return got
+    got = fused.cape_cin_kernel(*args, with_profile=with_profile)
+    if not with_profile:
+        return dict(zip(fused.OUTPUTS, got))
+    out, prof = got
+    return {**dict(zip(fused.OUTPUTS, out)),
+            **{k: v.flatten()[::17] for k, v in zip(fused.PROFILE, prof)}}
 
 
-def tail(lib, args):
-    p = args[0]
-    B, L = p.shape
-    out = torch.empty((len(diag.DIAG_OUTPUTS), B), dtype=p.dtype,
-                      device=p.device)
-    suffix = 'f32' if p.dtype == torch.float32 else 'f64'
-    call(lib, f'diag_tail_{suffix}', [*(x.data_ptr() for x in args),
-                                      out.data_ptr()], B, L)
-    return dict(zip(diag.DIAG_OUTPUTS, out))
+def tail(args):
+    return dict(zip(diag.DIAG_OUTPUTS, diag.diag_kernel(*args)))
 
 
 def cases_at(L, dtypes, coeffs, dev):
-    """{case: (run(lib), bound, dtype name)} at 786,432 x L."""
+    """{case: (run(), bound, dtype name)} at 786,432 x L."""
     data, td = chip_smoke.synthetic(chip_smoke.MAIN_COLUMNS, L=L)
     cases = {}
     for dtype in dtypes:
         dname = str(dtype).split('.')[-1]
         tab = xt.AdiabatTables(coeffs.to(dtype))
-        # Contiguous, as the kernels take them (the synthetic pressure is
-        # column-major).
+        # Contiguous, as the fused pipeline hands them to the solve (the
+        # synthetic pressure is column-major, which the wrapper would copy).
         p, t, h = (torch.as_tensor(data[k], dtype=dtype,
                                    device=dev).contiguous()
                    for k in ('pressure', 'temperature', 'height_asl'))
@@ -120,14 +70,14 @@ def cases_at(L, dtypes, coeffs, dev):
         args = (p, t, tdd, *fused.prepass(p, p[:, 0], t[:, 0], tdd[:, 0],
                                           tab))
         cases[f'solve {dname} L={L}'] = (
-            lambda lib, a=args: solve(lib, a, False),
+            lambda a=args: solve(a, False),
             chip_smoke.bound(*chip_smoke.solve_work(*args), dtype), dname)
         if dtype == torch.float32 and len(dtypes) > 1:
             cases[f'solve {dname} L={L} with tracks'] = (
-                lambda lib, a=args: solve(lib, a, True), None, dname)
+                lambda a=args: solve(a, True), None, dname)
         targs = (p, t, tdd, h)
         cases[f'tail {dname} L={L}'] = (
-            lambda lib, a=targs: tail(lib, a),
+            lambda a=targs: tail(a),
             chip_smoke.bound(*chip_smoke.tail_work(*targs), dtype), dname)
     return cases
 
@@ -135,11 +85,7 @@ def cases_at(L, dtypes, coeffs, dev):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     ap.add_argument('--other', action='append', default=[],
-                    metavar='NAME=DIR[:DEFINES]',
-                    help='another tree to time')
-    ap.add_argument('--variant', action='append', default=[],
-                    metavar='NAME=DEFINES',
-                    help='this tree with comma-separated macros defined')
+                    metavar='NAME=DIR', help='another tree to time')
     ap.add_argument('--levels', type=int, nargs='+', default=[90])
     opts = ap.parse_args()
     if not torch.cuda.is_available():
@@ -151,33 +97,34 @@ def main():
                          text=True, check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
 
-    libs = {}
+    trees = {}
     for spec in opts.other:
         name, root = spec.split('=', 1)
-        root, _, defines = root.partition(':')
-        libs[name], report = build(name, os.path.join(
-            root, 'xarray_parcel_tpu_torch', 'csrc'),
-            [d for d in defines.split(',') if d])
-        print(f'--- {name} ({root} {defines})\n{report}', flush=True)
-    for spec in opts.variant or ['this=']:
-        name, defines = spec.split('=', 1)
-        libs[name], report = build(name, _build.CSRC,
-                                   [d for d in defines.split(',') if d])
-        print(f'--- {name}: this tree, {defines or "defaults"}\n{report}',
-              flush=True)
+        trees[name] = os.path.join(os.path.abspath(root),
+                                   'xarray_parcel_tpu_torch', 'csrc')
+    trees['this'] = _build.CSRC
+    for name, csrc in trees.items():
+        print(f'--- {name} ({csrc})', flush=True)
+        _build.build(verbose=True, csrc=csrc)
+        _build.load_library(csrc)
+
+    def run_with(name, run):
+        with _build.kernels_from(trees[name]):
+            return run()
 
     coeffs = xt.AdiabatTables.build(dev, torch.float64).coeffs
-    names = list(libs)
+    names = list(trees)
     result = {'device': smi, 'columns': chip_smoke.MAIN_COLUMNS, 'cases': {}}
     for k, L in enumerate(opts.levels):
         dtypes = ((torch.float32, torch.float64) if k == 0
                   else (torch.float32,))
         for case, (run, bnd, dname) in cases_at(L, dtypes, coeffs,
                                                 dev).items():
-            want = run(libs[names[0]])
+            want = run_with(names[0], run)
             times = {n: [] for n in names}
             for n in names + names[::-1]:
-                ms, got = chip_smoke.cuda_ms(lambda: run(libs[n]), REPEATS)
+                ms, got = chip_smoke.cuda_ms(lambda: run_with(n, run),
+                                             REPEATS)
                 times[n].append(ms)
                 if n != names[0]:
                     chip_smoke.compare(f'{case}/{n} vs {names[0]}/', got,

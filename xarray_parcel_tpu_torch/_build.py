@@ -8,11 +8,16 @@ beside the package, named by a hash of the sources, the shared headers
 (``csrc/*.cuh``) and the flags, so an edited source or header builds anew
 and an unchanged tree loads the existing library.
 
+``kernels_from`` makes ``launch`` take the kernels of another tree's
+``csrc/`` with the same C interface, built and named the same way, so two
+trees' kernels can be timed through the same wrappers in one process.
+
 There is no fallback: a missing ``nvcc`` or a failed build raises.  Fast
 math stays off, because the CAPE/CIN solve's selections depend on IEEE
 ``exp``/``log``/divide and on NaN semantics.
 """
 
+import contextlib
 import ctypes
 import glob
 import hashlib
@@ -38,17 +43,18 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-fmad=false', '-Xcompiler', '-fPIC')
 
 _lock = threading.Lock()
-_loaded = {}
+_loaded = {}                    # sources directory -> loaded library
+_active = CSRC                  # whose kernels launch() calls
 
 
-def sources():
+def sources(csrc=CSRC):
     """The kernel sources, in a stable order."""
-    return sorted(glob.glob(os.path.join(CSRC, '*.cu')))
+    return sorted(glob.glob(os.path.join(csrc, '*.cu')))
 
 
-def headers():
+def headers(csrc=CSRC):
     """The headers the sources share, in a stable order."""
-    return sorted(glob.glob(os.path.join(CSRC, '*.cuh')))
+    return sorted(glob.glob(os.path.join(csrc, '*.cuh')))
 
 
 def find_nvcc():
@@ -65,11 +71,11 @@ def find_nvcc():
                        'built')
 
 
-def library_path():
-    """Where the library for the current sources, headers and flags
-    lives."""
+def library_path(csrc=CSRC):
+    """Where the library for the sources and headers in ``csrc`` and the
+    flags lives."""
     h = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
-    for src in sources() + headers():
+    for src in sources(csrc) + headers(csrc):
         h.update(os.path.basename(src).encode())
         with open(src, 'rb') as f:
             h.update(f.read())
@@ -90,24 +96,24 @@ def _run_all(cmds):
     return ''.join(outs)
 
 
-def build(verbose=False):
-    """Compile the sources unless the library for them exists.  Returns
-    ``(path, seconds)``: seconds is 0.0 when nothing was compiled.  With
-    ``verbose``, passes ``-Xptxas -v`` and prints the compiler's report of
-    registers, shared memory and spills."""
-    path = library_path()
+def build(verbose=False, csrc=CSRC):
+    """Compile the sources in ``csrc`` unless the library for them exists.
+    Returns ``(path, seconds)``: seconds is 0.0 when nothing was compiled.
+    With ``verbose``, passes ``-Xptxas -v`` and prints the compiler's
+    report of registers, shared memory and spills."""
+    path = library_path(csrc)
     if os.path.exists(path):
         return path, 0.0
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = find_nvcc()
     tmp = f'{path}.{os.getpid()}.tmp'
-    objs = [f'{tmp}.{os.path.basename(src)}.o' for src in sources()]
+    objs = [f'{tmp}.{os.path.basename(src)}.o' for src in sources(csrc)]
     t0 = time.perf_counter()
     try:
         report = _run_all([[nvcc, *NVCC_FLAGS,
                             *(['-Xptxas', '-v'] if verbose else []),
                             '-c', '-o', obj, src]
-                           for src, obj in zip(sources(), objs)])
+                           for src, obj in zip(sources(csrc), objs)])
         _run_all([[nvcc, '-shared', '-o', tmp, *objs]])
     finally:
         for obj in objs:
@@ -120,13 +126,29 @@ def build(verbose=False):
     return path, seconds
 
 
-def load_library():
-    """The kernel library, built and loaded at first use in the process."""
+def load_library(csrc=None):
+    """The kernel library of ``csrc`` (by default the one :func:`launch`
+    calls), built and loaded at first use in the process."""
+    csrc = csrc or _active
     with _lock:
-        if 'lib' not in _loaded:
-            path, _ = build()
-            _loaded['lib'] = ctypes.CDLL(path)
-        return _loaded['lib']
+        if csrc not in _loaded:
+            path, _ = build(csrc=csrc)
+            _loaded[csrc] = ctypes.CDLL(path)
+        return _loaded[csrc]
+
+
+@contextlib.contextmanager
+def kernels_from(csrc):
+    """Within the block, :func:`launch` calls the kernels built from the
+    sources in ``csrc``: another tree's ``csrc/`` with the same C
+    interface, for timing its kernels against this tree's through the same
+    wrappers."""
+    global _active
+    before, _active = _active, os.path.abspath(csrc)
+    try:
+        yield
+    finally:
+        _active = before
 
 
 def launch(name, device, pointers, batch, *widths):

@@ -15,7 +15,7 @@
 // column: at 786,432 x 90 float32 that is 1,151 MB, 0.34 ms at 3.35 TB/s.
 // The arithmetic is a log and a few dozen flops per level.
 //
-// Design: one warp per column, XPT_TAIL_WARPS columns a block.  Lane l
+// Design: one warp per column, kWarps = 4 columns a block.  Lane l
 // takes levels l, l+32, l+64, ..., so every load of the warp is one
 // contiguous run of the row.  In the one pass over the levels each lane
 // keeps its closest levels to the three interpolation targets (Anchors in
@@ -29,11 +29,11 @@
 // ragged edges (any B, any L) are masked here; the TPU form's fixed
 // (256, 90) blocks are not carried over.
 //
-// What limits it (kernel_ab.py on an H100 at 700 W): 1.35 ms at the shape
+// What limits it (kernel_ab.py on an H100 at 700 W): 1.36 ms at the shape
 // above, four times the bound.  The per-column reductions and epilogue,
-// which the warp does once for all its lanes, are about 70% of it (1.22
-// ms at L = 45, 1.35 at 90, 1.82 at 180).  8 columns a block measured the
-// same in float32 (1.34 ms) and slower in float64 (2.59 against 2.24 ms).
+// which the warp does once for all its lanes, are about 70% of it (1.23
+// ms at L = 45, 1.36 at 90, 1.83 at 180).  8 columns a block measured the
+// same in float32 (1.35 ms) and slower in float64 (2.62 against 2.41 ms).
 //
 // Built with -fmad=false (see _build.py): the crossing heights and the
 // anchor selections compare values that the twin computes op by op.
@@ -43,13 +43,9 @@
 
 #include "column.cuh"
 
-#ifndef XPT_TAIL_WARPS
-#define XPT_TAIL_WARPS 4    // columns per block (128 threads)
-#endif
-
 namespace {
 
-constexpr int kWarps = XPT_TAIL_WARPS;
+constexpr int kWarps = 4;   // columns per block (128 threads)
 constexpr double kZeroC = 273.15;
 
 // Fold the crossing of d = curve - 273.15 over height in the gap between

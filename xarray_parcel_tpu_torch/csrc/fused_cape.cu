@@ -13,7 +13,7 @@
 // FP32 peak; issued without contraction (-fmad=false) and with the IEEE
 // sequences it lands near 0.4 ms of FP32 issue.
 //
-// Design: one warp solves one column, a block holds XPT_SOLVE_WARPS
+// Design: one warp solves one column, a block holds kWarps = 8
 // columns.  Lane l takes levels (and spliced slots) l, l+32, l+64, ...:
 //   * the column's p/t/td rows are read with consecutive lanes on
 //     consecutive addresses, so each input byte comes from HBM once; its
@@ -45,11 +45,11 @@
 // B and L is taken.  Only the order of the CAPE/CIN and duplicate-anchor
 // sums differs from the serial loop; every selection is bit-identical.
 //
-// What limits it (kernel_ab.py on an H100 at 700 W): 2.91 ms at the shape
-// above, 9.5 times the bound.  The per-column work that a warp does once
+// What limits it (kernel_ab.py on an H100 at 700 W): 2.92 ms at the shape
+// above, 9.6 times the bound.  The per-column work that a warp does once
 // for all its lanes -- about fifteen warp reductions and the scalar
-// prologue and epilogue -- is about half of it (2.44 ms at L = 45, 2.91 at
-// 90, 4.50 at 180), and issue and latency, not bytes, set the rest: in
+// prologue and epilogue -- is about half of it (2.47 ms at L = 45, 2.92 at
+// 90, 4.53 at 180), and issue and latency, not bytes, set the rest: in
 // float32 ptxas gives 64 registers a thread and spills 96 bytes, which
 // leaves 32 resident warps an SM.  Persistent blocks, 4 columns a block
 // and loading several strides ahead were each measured slower.
@@ -68,13 +68,9 @@
 
 #include "column.cuh"
 
-#ifndef XPT_SOLVE_WARPS
-#define XPT_SOLVE_WARPS 8   // columns per block (256 threads)
-#endif
-
 namespace {
 
-constexpr int kWarps = XPT_SOLVE_WARPS;
+constexpr int kWarps = 8;   // columns per block (256 threads)
 
 // Constants as exact doubles of the Python values (constants.py and
 // adiabat.py of the port); tests/test_torch_adiabat.py checks them.
