@@ -21,8 +21,18 @@ size (plain torch, no kernel launch), every column held against the fused
 pipelines, with their rates and peak memory (phase 6).  Gradients through
 the kernels' ``autograd.Function``s are held against the CPU twins' and
 central differences, and a forward plus backward of the surface solve is
-timed (phase 7).  Each phase prints one line; the last two lines are the
-kernel record and the result line.
+timed (phase 7).  Then the surfaces a user calls: the solve's four options,
+kernel against twin for each of six settings (phase 8);
+``load_moist_adiabat_lookups(regenerate=True)`` on the card, its
+coefficients against ``build_spectral``'s and ``moist_lapse``'s table modes
+against the exact integrator (phase 9); a Dataset of 786,432 columns with
+the level dim leading through ``xarray_api``'s fused pipelines, the surface
+solve and the storm proxies with the default device, every variable equal
+to the tensor-level path's, with the call's time split into lowering,
+copies, compute and lifting (phase 10); and the same Dataset streamed in
+chunks of 65,536 columns, with its rate and peak memory (phase 11).  Each
+phase prints one line; the last two lines are the kernel record and the
+result line.
 
 Exits non-zero, with no result line, when there is no CUDA device or when
 any check fails.  Imports nothing of JAX.
@@ -39,6 +49,7 @@ import torch
 import xarray_parcel_tpu_torch as xt
 from xarray_parcel_tpu_torch import _build, adiabat, fused, parcels
 from xarray_parcel_tpu_torch import diagnostics as diag
+from xarray_parcel_tpu_torch import xarray_api as xapi
 from xarray_parcel_tpu_torch.lcl import lcl
 
 MAIN_COLUMNS = 786_432          # the pipeline batch of the TPU-era bench
@@ -49,6 +60,20 @@ TAIL_COLUMNS = 4099             # hard columns of the tail check
 EDGE_LEVELS = (33, 137)         # other widths, around the lanes' wrap
 EDGE_COLUMNS = 1031             # x4 parcel variants for the solve
 kWarp = 32                      # lanes of a warp, each striding over levels
+GRID = (768, 1024)              # the Dataset's horizontal grid: MAIN_COLUMNS
+SMALL_GRID = (64, 128)          # the mixed-dims Dataset (1-D pressure)
+STREAM_COLUMNS = 65_536         # chunk of the streamed Dataset call
+# K, moist_lapse's table modes against the integrator: the bilinear index,
+# and the nearest cell, which snaps the parcel to the 0.02 K x 0.5 hPa grid
+# (an error that grows along the adiabat).
+TABLE_ATOL = {'bilinear': 0.05, 'nearest': 0.15}
+# The solve's options: each alone and all four together.
+SOLVE_OPTIONS = [dict(), dict(virtual_temperature_correction=False),
+                 dict(lcl_interp='linear'), dict(pos_cape_neg_cin=False),
+                 dict(post_zero_cin=True),
+                 dict(virtual_temperature_correction=False,
+                      lcl_interp='linear', pos_cape_neg_cin=False,
+                      post_zero_cin=True)]
 GOLDEN = dict(cape=230.20, cin=-58.07, tol=0.5)
 F64_ATOL = 1e-6
 # float32 budget (docs/performance.md): relative to each output's scale.
@@ -316,6 +341,53 @@ def kernel_args(p, t, td, tables):
                                      parcel['dewpoint'], tables)
     return (cols['pressure'], cols['temperature'], cols['dewpoint'], row,
             scalars, k0)
+
+
+def grid_dataset(dat_np, td, grid, pressure_1d=False):
+    """The synthetic soundings as a host Dataset laid out as model output
+    is: level variables (level, y, x) with the level dim leading, surface
+    winds (y, x), a ``dewpoint`` variable beside the pipeline's inputs, and
+    y/x coordinates.  ``pressure_1d``: pressure as a 1-D coordinate
+    variable over the level dim (the synthetic columns share one)."""
+    ny, nx = grid
+    n = ny * nx
+    V = xapi.DEFAULT_VERT_DIM
+
+    def level(a):
+        return ((V, 'y', 'x'), np.ascontiguousarray(
+            a[:n].reshape(ny, nx, -1).transpose(2, 0, 1)))
+
+    data = {k: level(v) if v.ndim == 2 else (('y', 'x'),
+                                             v[:n].reshape(ny, nx))
+            for k, v in dat_np.items()}
+    data['dewpoint'] = level(td)
+    if pressure_1d:
+        data['pressure'] = ((V,), np.ascontiguousarray(
+            dat_np['pressure'][0]))
+    return xapi.xr.Dataset(data, coords={
+        'y': np.linspace(-40.0, 40.0, ny), 'x': np.linspace(0.0, 359.0, nx)})
+
+
+def same_as_tensors(name, ds, want, n=None):
+    """Hold every variable of the Dataset ``ds`` to the tensor-level
+    outputs ``want`` (dict of (B,) tensors; the first ``n`` columns):
+    the same names, bit-equal values with NaNs in the same places, and
+    attrs and the y/x coordinates on every variable's Dataset."""
+    if set(ds.data_vars) != set(want):
+        raise AssertionError(f'{name}: variables {sorted(ds.data_vars)} vs '
+                             f'{sorted(want)}')
+    for k, v in want.items():
+        got = np.asarray(ds[k].values).reshape(-1)
+        ref = v[:n].cpu().numpy()
+        if got.dtype != ref.dtype or not np.array_equal(
+                got, ref, equal_nan=ref.dtype.kind == 'f'):
+            raise AssertionError(f'{name}/{k}: differs from the tensor-level '
+                                 f'path ({got.dtype} vs {ref.dtype})')
+        if ds[k].dims != ('y', 'x') or not ds[k].attrs:
+            raise AssertionError(f'{name}/{k}: dims {ds[k].dims}, attrs '
+                                 f'{ds[k].attrs}')
+    if 'y' not in ds.coords or 'x' not in ds.coords:
+        raise AssertionError(f'{name}: coordinates {list(ds.coords)}')
 
 
 def finite_sum(out, keys):
@@ -603,6 +675,8 @@ def main():
     kern_a, got = cuda_ms(lambda: fused.cape_cin_kernel(*margs), 10)
     prof_ms, _ = cuda_ms(lambda: fused.cape_cin_kernel(*margs,
                                                        with_profile=True), 10)
+    flags_ms, _ = cuda_ms(lambda: fused.cape_cin_kernel(
+        *margs, **SOLVE_OPTIONS[-1]), 10)
     kern_b, _ = cuda_ms(lambda: fused.cape_cin_kernel(*margs), 10)
     plain_b, _ = cuda_ms(lambda: fused._column_outputs(*margs), 3)
     kernel_ms, plain_ms = (kern_a + kern_b) / 2, (plain_a + plain_b) / 2
@@ -843,6 +917,242 @@ def main():
         f'fused_surface_cape_cin at {n_grad} float32 columns forward plus '
         f'backward {fwd_bwd_s * 1e3:.2f} ms (forward alone '
         f'{fwd_s * 1e3:.2f} ms), {smi}')
+
+    # 8. The solve's options: kernel against twin for each setting.
+    opt_err = {}
+    for dtype in (torch.float64, torch.float32):
+        dname = str(dtype).split('.')[-1]
+        tab = tab64 if dtype == torch.float64 else tab32
+        sets = {LEVELS: kernel_args(*(torch.as_tensor(x, dtype=dtype,
+                                                      device=dev)
+                                      for x in (p_np, t_np, td_np)), tab)}
+        for L in EDGE_LEVELS:
+            sets[L] = lane_edge_args(EDGE_COLUMNS, tab, L=L)
+        worst = 0.0
+        for L, args in sets.items():
+            for kw in SOLVE_OPTIONS:
+                tag = f'options/{dname}/L={L}/{kw or "default"}/'
+                got = fused.cape_cin_kernel(*args, **kw)
+                got_p, prof = fused.cape_cin_kernel(*args, with_profile=True,
+                                                    **kw)
+                torch.cuda.synchronize()
+                want, want_prof = fused._column_outputs(
+                    *args, with_profile=True, **kw)
+                if not torch.equal(got.nan_to_num(7.0),
+                                   got_p.nan_to_num(7.0)):
+                    raise AssertionError(f'{tag}: outputs differ with and '
+                                         f'without the profile tracks')
+                worst = max(worst,
+                            compare(tag, dict(zip(fused.OUTPUTS, got)),
+                                    dict(zip(fused.OUTPUTS, want)), dname),
+                            compare(tag + 'profile/',
+                                    dict(zip(fused.PROFILE, prof)),
+                                    dict(zip(fused.PROFILE, want_prof)),
+                                    dname))
+        opt_err[dname] = worst
+    log(f'[8 options] {len(SOLVE_OPTIONS)} settings (each option alone and '
+        f'all four) x with and without the profile tracks, on '
+        f'{4 * HARD_COLUMNS} hard columns x {LEVELS} and {4 * EDGE_COLUMNS} '
+        f'lane-edge columns at {EDGE_LEVELS[0]} and {EDGE_LEVELS[1]} levels '
+        f'vs the plain twin: float64 identical NaN patterns, max |diff| '
+        f'{opt_err["float64"]:.3g}; float32 within the budget, max |diff| '
+        f'{opt_err["float32"]:.3g}; at {MAIN_COLUMNS} x {LEVELS} float32 the '
+        f'default instance {kern_a:.3f}/{kern_b:.3f} ms, the instance that '
+        f'reads the flags word {flags_ms:.3f} ms (all four options), {smi}')
+
+    # 9. The tables, built and cached by the entry point a user calls.
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loaded = xt.load_moist_adiabat_lookups(regenerate=True)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    if (loaded.coeffs.device.type != 'cuda'
+            or loaded.coeffs.dtype != torch.float32
+            or loaded.curves is None or loaded.lookup is None):
+        raise AssertionError('loaded tables: not float32 on the card with '
+                             'curves and lookup')
+    if adiabat.default_tables(dev, torch.float32) is not loaded:
+        raise AssertionError('default_tables does not return what was loaded')
+    coeff_err = (loaded.coeffs - tab32.coeffs).abs().max().item()
+    if coeff_err != 0.0:
+        raise AssertionError(f'loaded coefficients off build_spectral by '
+                             f'{coeff_err:.3g}')
+    t0 = time.perf_counter()
+    again = xt.AdiabatTables.load(adiabat._LOADED_SOURCE, dev)
+    reload_s = time.perf_counter() - t0
+    for name in ('coeffs', 'curves', 'lookup'):
+        if not torch.equal(getattr(again, name).nan_to_num(-1.0),
+                           getattr(loaded, name).nan_to_num(-1.0)):
+            raise AssertionError(f'tables: {name} changed in a save and load')
+    del again
+    rng = np.random.default_rng(5)
+    lift_p = torch.as_tensor(
+        np.linspace(1000.0, 150.0, LEVELS) + rng.normal(0, 0.3, (4096, LEVELS)),
+        dtype=torch.float32, device=dev)
+    lift_t = torch.as_tensor(rng.uniform(255.0, 305.0, 4096),
+                             dtype=torch.float32, device=dev)
+    exact = adiabat.moist_lapse_integrate(lift_p.double(), lift_t.double(),
+                                          lift_p[:, 0].double())
+    mode_err = {}
+    for mode, kw in (('bilinear index', dict(index_mode='bilinear')),
+                     ('nearest index', dict(index_mode='nearest')),
+                     ('curves, no blend', dict(curve_blend=False)),
+                     ('curves, bilinear index, no blend',
+                      dict(index_mode='bilinear', curve_blend=False))):
+        got = adiabat.moist_lapse(lift_p, lift_t, lift_p[:, 0],
+                                  tables=loaded, **kw)
+        err = (got.double() - exact).abs()
+        atol = TABLE_ATOL['nearest' if 'nearest' in mode else 'bilinear']
+        if not torch.isfinite(err).all() or err.max().item() > atol:
+            raise AssertionError(f'moist_lapse {mode}: max |diff| '
+                                 f'{err.max().item():.3g} K vs the integrator')
+        mode_err[mode] = err.max().item()
+    log(f'[9 tables] load_moist_adiabat_lookups(regenerate=True) built '
+        f'coeffs, curves {tuple(loaded.curves.shape)} and lookup '
+        f'{tuple(loaded.lookup.shape)} on the card and cached them in '
+        f'{load_s:.2f} s (read back from the file in {reload_s:.2f} s, '
+        f'unchanged); coeffs equal build_spectral\'s; moist_lapse on them '
+        f'vs moist_lapse_integrate on 4096 x {LEVELS}: ' + ', '.join(
+            f'{m} {e:.3g} K' for m, e in mode_err.items()) + f'; {smi}')
+
+    # 10. A Dataset on the host through the surfaces a user calls, with the
+    # default device.  The reference is the tensor-level path on the same
+    # columns, contiguous as the lowering makes them (the synthetic
+    # pressure of phase 5 is column-major, and a reduction over a strided
+    # level axis may sum in another order): the same computation.
+    ds = grid_dataset(dat_np, td_main, GRID)
+    dat_c = {k: v.contiguous() for k, v in dat.items()}
+    res, sol = xt.fused_surface_cape_cin(
+        dat_c['pressure'], t, td, tables=tab32, with_lifted_index=True)
+    refs = {'pipeline': xt.conv_properties_fused(dat_c, tables=tab32),
+            'reduced': xt.min_conv_properties_fused(dat_c, tables=tab32),
+            'surface': {**res, **sol}}
+    refs['proxies'] = xt.storm_proxies(refs['pipeline'])
+    ds_paths = {
+        'pipeline': (lambda d: xapi.conv_properties_fused(d), (3, 1)),
+        'reduced': (lambda d: xapi.min_conv_properties_fused(d), (1, 1)),
+        'surface': (lambda d: xapi.surface_based_cape_cin_dataset(
+            d, with_lifted_index=True), (1, 0)),
+    }
+    ds_outs = {}
+    for name, (run, want_counts) in ds_paths.items():
+        fused.cape_cin_kernel.launches = diag.diag_kernel.launches = 0
+        ds_outs[name] = run(ds)
+        counts = (fused.cape_cin_kernel.launches, diag.diag_kernel.launches)
+        if counts != want_counts:
+            raise AssertionError(f'Dataset {name}: (solve, tail) launches '
+                                 f'{counts}, want {want_counts}')
+        launches['fused_cape_cin'] += counts[0]
+        launches['diag_tail'] += counts[1]
+        same_as_tensors(f'Dataset {name}', ds_outs[name], refs[name])
+    fused.cape_cin_kernel.launches = diag.diag_kernel.launches = 0
+    ds_outs['proxies'] = xapi.storm_proxies(ds_outs['pipeline'])
+    counts = (fused.cape_cin_kernel.launches, diag.diag_kernel.launches)
+    if counts != (0, 0):
+        raise AssertionError(f'Dataset proxies: launches {counts}')
+    same_as_tensors('Dataset proxies', ds_outs['proxies'], refs['proxies'])
+
+    # Mixed dims: pressure as a 1-D coordinate variable, a smaller grid.
+    n_small = SMALL_GRID[0] * SMALL_GRID[1]
+    small = grid_dataset(dat_np, td_main, SMALL_GRID, pressure_1d=True)
+    fused.cape_cin_kernel.launches = diag.diag_kernel.launches = 0
+    small_out = xapi.conv_properties_fused(small)
+    counts = (fused.cape_cin_kernel.launches, diag.diag_kernel.launches)
+    if counts != (3, 1):
+        raise AssertionError(f'mixed-dims Dataset: launches {counts}')
+    launches['fused_cape_cin'] += counts[0]
+    launches['diag_tail'] += counts[1]
+    same_as_tensors('mixed-dims Dataset', small_out,
+                    xt.conv_properties_fused(
+                        {k: v[:n_small] for k, v in dat_c.items()},
+                        tables=tab32))
+    del refs, dat_c
+
+    # End to end, and the same steps one by one.
+    whole_s = wall_median(lambda: xapi.conv_properties_fused(ds), 3)
+    use = [k for k in ds.data_vars if k != 'dewpoint']
+    split = {}
+
+    def timed(step, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        split[step] = time.perf_counter() - t0
+        return out
+
+    fields, batch_dims = timed('lowering', lambda: xapi.from_dataset(
+        ds, variables=use))
+    on_card = timed('host to device', lambda: xapi.to_device(fields, dev))
+    cols = {k: v.reshape((MAIN_COLUMNS,) + tuple(v.shape[2:]))
+            for k, v in on_card.items()}
+    out_card = timed('compute', lambda: xt.conv_properties_fused(cols))
+    out_host = timed('device to host', lambda: xapi.to_host(out_card))
+    timed('lifting', lambda: xapi.to_dataset(
+        {k: v.reshape(GRID) for k, v in out_host.items()}, batch_dims,
+        coords={d: ds.coords[d] for d in batch_dims}))
+    in_bytes = sum(v.nbytes for v in fields.values())
+    out_bytes = sum(v.nbytes for v in out_host.values())
+    del fields, on_card, cols, out_card, out_host
+    log(f'[10 dataset] {GRID[0]} x {GRID[1]} x {LEVELS} float32 Dataset, '
+        f'level dim leading, default device: conv_properties_fused, '
+        f'min_conv_properties_fused, surface_based_cape_cin_dataset and '
+        f'storm_proxies with (solve, tail) launches 3+1, 1+1, 1+0, 0+0, and '
+        f'conv_properties_fused on a {SMALL_GRID[0]} x {SMALL_GRID[1]} grid '
+        f'with a 1-D pressure coordinate (3+1): every variable bit-equal to '
+        f'the tensor-level path, attrs and coordinates on each; '
+        f'conv_properties_fused host Dataset to host Dataset '
+        f'{whole_s * 1e3:.1f} ms, {MAIN_COLUMNS / whole_s:.4g} columns/s; '
+        f'its steps alone: ' + ', '.join(
+            f'{k} {v * 1e3:.1f} ms' for k, v in split.items()) +
+        f' ({in_bytes / 1e6:.0f} MB in, {out_bytes / 1e6:.0f} MB out); {smi}')
+
+    # 11. The same Dataset streamed in column chunks.
+    def peak_of(run):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = run()
+        torch.cuda.synchronize()
+        return out, torch.cuda.max_memory_allocated() - base
+
+    _, whole_peak = peak_of(lambda: xapi.conv_properties_fused(ds))
+    n_chunks = -(-MAIN_COLUMNS // STREAM_COLUMNS)
+    fused.cape_cin_kernel.launches = diag.diag_kernel.launches = 0
+    streamed, stream_peak = peak_of(lambda: xapi.conv_properties_fused(
+        ds, stream_columns=STREAM_COLUMNS))
+    counts = (fused.cape_cin_kernel.launches, diag.diag_kernel.launches)
+    if counts != (3 * n_chunks, n_chunks):
+        raise AssertionError(f'streamed Dataset: launches {counts} in '
+                             f'{n_chunks} chunks')
+    launches['fused_cape_cin'] += counts[0]
+    launches['diag_tail'] += counts[1]
+    whole = ds_outs['pipeline']
+    if set(streamed.data_vars) != set(whole.data_vars):
+        raise AssertionError('streamed Dataset: other variables')
+    stream_err = compare(
+        'streamed vs whole/',
+        {k: torch.from_numpy(np.asarray(streamed[k].values))
+         for k in whole.data_vars},
+        {k: torch.from_numpy(np.asarray(whole[k].values))
+         for k in whole.data_vars}, 'float32')
+    unequal = [k for k in whole.data_vars if not np.array_equal(
+        np.asarray(streamed[k].values), np.asarray(whole[k].values),
+        equal_nan=np.asarray(whole[k].values).dtype.kind == 'f')]
+    if not all(streamed[k].attrs for k in streamed.data_vars):
+        raise AssertionError('streamed Dataset: a variable has no attrs')
+    stream_s = wall_median(lambda: xapi.conv_properties_fused(
+        ds, stream_columns=STREAM_COLUMNS), 3)
+    log(f'[11 streamed] the same Dataset with stream_columns='
+        f'{STREAM_COLUMNS}: {n_chunks} chunks, (solve, tail) launches '
+        f'{counts[0]}+{counts[1]}; vs the whole call within the float32 '
+        f'budget, max |diff| {stream_err:.3g}, '
+        f'{len(unequal)} of {len(whole.data_vars)} variables not bit-equal'
+        f'{" (" + ", ".join(unequal) + ")" if unequal else ""}; '
+        f'{stream_s * 1e3:.1f} ms, {MAIN_COLUMNS / stream_s:.4g} columns/s '
+        f'(whole {whole_s * 1e3:.1f} ms); peak device memory above what was '
+        f'allocated before the call {stream_peak / 2**30:.2f} GiB streamed, '
+        f'{whole_peak / 2**30:.2f} GiB whole; {smi}')
 
     record = {'kernels': [{
         'name': 'fused_cape_cin',

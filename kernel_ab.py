@@ -20,6 +20,13 @@ outputs against the first tree's (float64: identical NaN patterns and
 turns (a b c ... c b a).  The last line is one JSON object: each tree's
 mean milliseconds per launch in each case, the case's bound
 (``chip_smoke.bound``) and the card's name and power limit.
+
+The solve's default options go through the library's
+``fused_cape_cin_<dtype>`` entry points, which every tree has had since the
+first kernel, so older trees time as before.  The case with all four
+options set calls ``fused_cape_cin_flags_<dtype>``, which takes the flags
+word: a tree from before the options has no such entry point and is left
+out of that case (its line says so).
 """
 
 import argparse
@@ -38,11 +45,15 @@ from xarray_parcel_tpu_torch import diagnostics as diag
 REPEATS = 10                    # launches timed per turn, after a warm-up
 
 
-def solve(args, with_profile):
+# The entry point that only trees with the solve's options have.
+FLAGS_ENTRY = 'fused_cape_cin_flags_f32'
+
+
+def solve(args, with_profile, **options):
     """The solve's outputs by name, and with ``with_profile`` each track's
     every 17th value (``chip_smoke.compare`` takes a quantile, which a
     whole track is too long for)."""
-    got = fused.cape_cin_kernel(*args, with_profile=with_profile)
+    got = fused.cape_cin_kernel(*args, with_profile=with_profile, **options)
     if not with_profile:
         return dict(zip(fused.OUTPUTS, got))
     out, prof = got
@@ -55,7 +66,8 @@ def tail(args):
 
 
 def cases_at(L, dtypes, coeffs, dev):
-    """{case: (run(), bound, dtype name)} at 786,432 x L."""
+    """{case: (run(), bound, dtype name, entry point a tree must have or
+    None)} at 786,432 x L."""
     data, td = chip_smoke.synthetic(chip_smoke.MAIN_COLUMNS, L=L)
     cases = {}
     for dtype in dtypes:
@@ -71,14 +83,20 @@ def cases_at(L, dtypes, coeffs, dev):
                                           tab))
         cases[f'solve {dname} L={L}'] = (
             lambda a=args: solve(a, False),
-            chip_smoke.bound(*chip_smoke.solve_work(*args), dtype), dname)
+            chip_smoke.bound(*chip_smoke.solve_work(*args), dtype), dname,
+            None)
         if dtype == torch.float32 and len(dtypes) > 1:
             cases[f'solve {dname} L={L} with tracks'] = (
-                lambda a=args: solve(a, True), None, dname)
+                lambda a=args: solve(a, True), None, dname, None)
+            cases[f'solve {dname} L={L} all four options'] = (
+                lambda a=args: solve(a, False,
+                                     **chip_smoke.SOLVE_OPTIONS[-1]),
+                None, dname, FLAGS_ENTRY)
         targs = (p, t, tdd, h)
         cases[f'tail {dname} L={L}'] = (
             lambda a=targs: tail(a),
-            chip_smoke.bound(*chip_smoke.tail_work(*targs), dtype), dname)
+            chip_smoke.bound(*chip_smoke.tail_work(*targs), dtype), dname,
+            None)
     return cases
 
 
@@ -113,13 +131,16 @@ def main():
             return run()
 
     coeffs = xt.AdiabatTables.build(dev, torch.float64).coeffs
-    names = list(trees)
+    all_names = list(trees)
     result = {'device': smi, 'columns': chip_smoke.MAIN_COLUMNS, 'cases': {}}
     for k, L in enumerate(opts.levels):
         dtypes = ((torch.float32, torch.float64) if k == 0
                   else (torch.float32,))
-        for case, (run, bnd, dname) in cases_at(L, dtypes, coeffs,
-                                                dev).items():
+        for case, (run, bnd, dname, needs) in cases_at(L, dtypes, coeffs,
+                                                       dev).items():
+            names = [n for n in all_names if needs is None
+                     or hasattr(_build.load_library(trees[n]), needs)]
+            left_out = [n for n in all_names if n not in names]
             want = run_with(names[0], run)
             times = {n: [] for n in names}
             for n in names + names[::-1]:
@@ -136,7 +157,9 @@ def main():
             print(f'{case}: ' + ', '.join(
                 f'{n} {"/".join(f"{x:.3f}" for x in times[n])} ms'
                 for n in names) + (f'; bound {bnd[0]:.3f} ms by {bnd[1]}'
-                                   if bnd else '') + f' ({smi})', flush=True)
+                                   if bnd else '') + (
+                f'; without {needs}: {", ".join(left_out)}'
+                if left_out else '') + f' ({smi})', flush=True)
             del want, got
     print(json.dumps(result))
     return 0

@@ -3,7 +3,11 @@
 The port builds its own spectral coefficients (``build_spectral``); they
 must evaluate to the JAX cache's curves within 1e-9 K on the 0.5 hPa grid.
 The evaluation half (curve index, row blend, Clenshaw series) is held to the
-JAX functions on the same coefficients.
+JAX functions on the same coefficients.  The table functions
+(``generate_curves``, ``build_lookup``) are held to the JAX package's
+cached curves (1e-9 K) and lookup table (identical NaN cells, 1e-6 index
+units); table files cross between the packages in both directions, and
+``load_moist_adiabat_lookups`` caches in the port's own file.
 """
 
 import os
@@ -16,6 +20,7 @@ import torch
 
 from xarray_parcel_tpu import adiabat as jad
 from xarray_parcel_tpu_torch import adiabat as tad
+from xarray_parcel_tpu_torch import AdiabatTables
 from xarray_parcel_tpu_torch import constants as tc
 
 from test_torch_ops import assert_same, to_torch
@@ -164,3 +169,163 @@ def test_kernel_constants_match_python():
     assert set(k) == set(want)
     for name, value in want.items():
         assert k[name] == value, name
+
+
+# --- building the tables and the table files ---------------------------------
+
+def test_round_to_and_pressure_grid():
+    x = np.array([273.154, 299.996, 173.0, 250.005])
+    np.testing.assert_allclose(tad.round_to(to_torch(x), 0.02).numpy(),
+                               np.asarray(jad.round_to(x, 0.02)), atol=1e-12)
+    np.testing.assert_array_equal(tad.pressure_grid().numpy(),
+                                  np.asarray(jad.pressure_grid()))
+    assert tad.pressure_grid().shape == (tad.N_PRES,)
+    for a, b in zip(tad._refined_grid(), jad._refined_grid()):
+        np.testing.assert_array_equal(a, b)
+    assert tad.MAX_DLOGP == jad.MAX_DLOGP
+
+
+def test_generate_curves_match_jax(jax_tables):
+    """Every 50th curve (286 of 14,300: generate_curves walks all curves in
+    step, so a subset takes the same path) against the JAX cache, 1e-9 K."""
+    sel = slice(None, None, 50)
+    starts = tad.curve_start_temperatures('cpu')[sel]
+    curves = tad.generate_curves('cpu', starts=starts)
+    want = np.asarray(jax_tables.curves)[sel]
+    assert curves.shape == want.shape == (286, tad.N_PRES)
+    assert curves.dtype == torch.float64
+    np.testing.assert_allclose(curves.numpy(), want, atol=1e-9, rtol=0)
+
+
+def test_build_lookup_matches_jax(jax_tables):
+    """The lookup table from the JAX package's curves: the same NaN cells
+    and fractional indices within 1e-6 (it is stored as float32)."""
+    lookup = tad.build_lookup(to_torch(np.asarray(jax_tables.curves,
+                                                  np.float64)))
+    want = np.asarray(jax_tables.lookup)
+    assert lookup.shape == want.shape == (tad.N_PRES, tad.N_TEMP)
+    assert lookup.dtype == torch.float32
+    assert_same(want, lookup, atol=1e-6, rtol=0, name='lookup')
+    assert np.isnan(want).any() and np.isfinite(want).any()
+
+
+@pytest.fixture(scope='module')
+def port_tables(jax_tables, port_coeffs):
+    """The port's own coefficients with curves and lookup built by the
+    port (the lookup from the JAX curves: the full family takes
+    too long on the CPU for a test; the subset test above covers it)."""
+    curves = to_torch(np.asarray(jax_tables.curves, np.float64))
+    return AdiabatTables(port_coeffs, curves, tad.build_lookup(curves))
+
+
+def test_port_file_loads_into_jax(tmp_path, port_tables, jax_tables):
+    """``AdiabatTables.save`` writes the JAX package's layout: its loader
+    reads the file back bit for bit."""
+    path = str(tmp_path / 'port_tables.npz')
+    port_tables.save(path)
+    assert tad._stored_dtype(path) == np.float64
+    back = jad.AdiabatTables.load(path)
+    for name in ('coeffs', 'curves', 'lookup'):
+        a = np.asarray(getattr(back, name))
+        b = getattr(port_tables, name).numpy()
+        assert a.dtype == b.dtype, name
+        np.testing.assert_array_equal(a, b, err_msg=name)
+    again = AdiabatTables.load(path, 'cpu')
+    assert again.coeffs.dtype == torch.float64
+    assert torch.equal(again.coeffs, port_tables.coeffs)
+    assert torch.equal(again.lookup.nan_to_num(-1),
+                       port_tables.lookup.nan_to_num(-1))
+    narrow = AdiabatTables.load(path, 'cpu', torch.float32)
+    assert narrow.curves.dtype == narrow.coeffs.dtype == torch.float32
+    assert narrow.lookup.dtype == torch.float32
+
+
+def test_jax_file_loads_into_port(tmp_path, jax_tables, port_coeffs):
+    """A file written by the JAX package's ``AdiabatTables.save`` loads into
+    the port; its coefficients agree with the port's own build (1e-9 K)."""
+    path = str(tmp_path / 'jax_tables.npz')
+    jax_tables.save(path)
+    got = AdiabatTables.load(path, 'cpu')
+    for name in ('coeffs', 'curves', 'lookup'):
+        np.testing.assert_array_equal(getattr(got, name).numpy(),
+                                      np.asarray(getattr(jax_tables, name)),
+                                      err_msg=name)
+    np.testing.assert_allclose(got.coeffs.numpy(), port_coeffs.numpy(),
+                               atol=1e-9, rtol=0)
+    # A file without coefficients: they are rebuilt on load.
+    bare = str(tmp_path / 'bare.npz')
+    np.savez(bare, curves=np.asarray(jax_tables.curves),
+             lookup=np.asarray(jax_tables.lookup))
+    rebuilt = AdiabatTables.load(bare, 'cpu')
+    assert torch.equal(rebuilt.coeffs, port_coeffs)
+
+
+def test_astype_and_build_signature(port_tables):
+    narrow = port_tables.astype(torch.float32)
+    assert narrow.coeffs.dtype == narrow.curves.dtype == torch.float32
+    assert narrow.lookup is port_tables.lookup
+    assert port_tables.coeffs.dtype == torch.float64      # a new object
+    bare = AdiabatTables(port_tables.coeffs).astype(torch.float32)
+    assert bare.curves is None and bare.lookup is None
+
+
+def test_load_moist_adiabat_lookups_uses_its_own_cache(tmp_path, monkeypatch,
+                                                       port_tables):
+    """The entry point builds once, caches in the port's own file (never
+    the JAX package's), loads it back, and feeds ``default_tables``."""
+    built = []
+
+    def fake_build(device, dtype, with_tables=False):
+        built.append((str(device), dtype, with_tables))
+        return port_tables.astype(dtype)
+
+    monkeypatch.setattr(tad.AdiabatTables, 'build', staticmethod(fake_build))
+    monkeypatch.setattr(tad, '_CACHE_DIR', str(tmp_path))
+    monkeypatch.setattr(tad, '_LOADED', None)
+    monkeypatch.setattr(tad, '_LOADED_SOURCE', None)
+    monkeypatch.setattr(tad, '_DEFAULTS', {})
+    monkeypatch.delenv('XPARCEL_TORCH_TABLE_CACHE', raising=False)
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        tad.load_moist_adiabat_lookups()                 # the card by default
+    tables = tad.load_moist_adiabat_lookups(device='cpu',
+                                            dtype=torch.float64)
+    assert built == [('cpu', torch.float64, True)]
+    path = tmp_path / 'torch_adiabat_tables_f64.npz'
+    assert path.exists() and sorted(os.listdir(tmp_path)) == [path.name]
+    assert 'torch_' in path.name                 # not the JAX package's file
+    assert tad.load_moist_adiabat_lookups(device='cpu',
+                                          dtype=torch.float64) is tables
+    assert tad.default_tables('cpu', torch.float64) is not None
+    assert tad.default_tables('cpu', torch.float64).curves is not None
+    assert tad.default_tables('cpu', torch.float32).curves.dtype == \
+        torch.float32
+    # A fresh process state: the file is read, nothing is built.
+    monkeypatch.setattr(tad, '_LOADED', None)
+    again = tad.load_moist_adiabat_lookups(device='cpu', dtype=torch.float64)
+    assert len(built) == 1
+    assert torch.equal(again.coeffs, tables.coeffs)
+    # A float32 request is served from the wider file given explicitly.
+    narrow = tad.load_moist_adiabat_lookups(cache_path=str(path),
+                                            device='cpu',
+                                            dtype=torch.float32)
+    assert narrow.coeffs.dtype == torch.float32 and len(built) == 1
+    # regenerate builds anew.
+    tad.load_moist_adiabat_lookups(device='cpu', dtype=torch.float64,
+                                   regenerate=True)
+    assert len(built) == 2
+    with pytest.raises(TypeError):
+        tad.load_moist_adiabat_lookups(device='cpu', dtype=torch.float16)
+
+
+def test_table_modes_run_on_the_ports_own_tables(port_tables):
+    """``moist_lapse``'s table modes on tables the port built, against the
+    exact integrator (0.05 K: the table's own accuracy)."""
+    rng = np.random.default_rng(21)
+    p = to_torch(np.linspace(1000.0, 150.0, 24) + rng.normal(0, .3, (16, 24)))
+    pt = to_torch(rng.uniform(255.0, 305.0, 16))
+    exact = tad.moist_lapse_integrate(p, pt, p[:, 0])
+    for kw in (dict(index_mode='bilinear'), dict(index_mode='nearest'),
+               dict(curve_blend=False)):
+        got = tad.moist_lapse(p, pt, p[:, 0], tables=port_tables, **kw)
+        assert torch.isfinite(got).all()
+        assert (got - exact).abs().max() < 0.05, kw

@@ -14,6 +14,8 @@ import torch
 import chip_smoke
 from xarray_parcel_tpu_torch import AdiabatTables, adiabat, fused
 from xarray_parcel_tpu_torch import diagnostics as diag
+from xarray_parcel_tpu_torch import xarray_api as xapi
+from xarray_parcel_tpu_torch.parallel import stream_map
 
 pytestmark = pytest.mark.cuda
 
@@ -226,3 +228,143 @@ def test_tail_wrapper_rejects_what_the_kernel_does_not_take(device):
         diag.diag_kernel(p, t[:, :-1], td, h)
     with pytest.raises(ValueError):
         diag.diag_kernel(p[0], t[0], td[0], h[0])
+
+
+# --- the solve's options ------------------------------------------------------
+
+@pytest.mark.parametrize('L', WIDTHS)
+@pytest.mark.parametrize('dtype', [torch.float64, torch.float32])
+def test_options_match_twin(device, coeffs, dtype, L):
+    """Each option alone and all four together (the instance that reads the
+    flags word), with and without the profile tracks, on the lane-edge
+    columns: identical NaN patterns in float64 and chip_smoke.compare's
+    bounds; the scalar outputs do not depend on the tracks being
+    stored."""
+    tables = AdiabatTables(coeffs.to(dtype))
+    args = chip_smoke.lane_edge_args(301, tables, L=L, seed=L)
+    name = str(dtype)[6:]
+    for kw in chip_smoke.SOLVE_OPTIONS:
+        got = fused.cape_cin_kernel(*args, **kw)
+        got_p, prof = fused.cape_cin_kernel(*args, with_profile=True, **kw)
+        torch.cuda.synchronize()
+        want, want_prof = fused._column_outputs(*args, with_profile=True,
+                                                **kw)
+        assert torch.equal(got.nan_to_num(7.0), got_p.nan_to_num(7.0)), kw
+        chip_smoke.compare(f'options {kw}', dict(zip(fused.OUTPUTS, got)),
+                           dict(zip(fused.OUTPUTS, want)), name)
+        chip_smoke.compare(f'options {kw} tracks',
+                           dict(zip(fused.PROFILE, prof)),
+                           dict(zip(fused.PROFILE, want_prof)), name)
+
+
+def test_options_change_the_answer_and_count_launches(device, coeffs):
+    tables = AdiabatTables(coeffs)
+    p, t, td = (torch.as_tensor(x, device=device)
+                for x in chip_smoke.hard_columns(301, L=40, seed=2))
+    before = fused.cape_cin_kernel.launches
+    base, _ = fused.fused_surface_cape_cin(p, t, td, tables=tables)
+    real, _ = fused.fused_surface_cape_cin(
+        p, t, td, tables=tables, virtual_temperature_correction=False)
+    signed, _ = fused.fused_surface_cape_cin(p, t, td, tables=tables,
+                                             pos_cape_neg_cin=False)
+    assert fused.cape_cin_kernel.launches == before + 3
+    assert not torch.equal(base['cape'].nan_to_num(), real['cape'].nan_to_num())
+    assert (signed['cape'].nan_to_num() <= base['cape'].nan_to_num() + 1e-9).all()
+    with pytest.raises(TypeError):
+        fused.fused_surface_cape_cin(p, t, td, tables=tables, no_such=1)
+    with pytest.raises(ValueError):
+        fused.fused_surface_cape_cin(p, t, td, tables=tables,
+                                     lcl_interp='cubic')
+
+
+def test_options_reach_the_gradient(device, coeffs):
+    """The Function's backward runs the twin under the same options."""
+    tables = AdiabatTables(coeffs)
+    p, t, td = (torch.as_tensor(x, device=device)
+                for x in chip_smoke.hard_columns(120, L=33, seed=4))
+    kw = chip_smoke.SOLVE_OPTIONS[-1]
+
+    def grad(dev, tab):
+        tt = t.to(dev).clone().requires_grad_()
+        res, _ = fused.fused_surface_cape_cin(p.to(dev), tt, td.to(dev),
+                                              tables=tab, **kw)
+        return torch.autograd.grad(
+            chip_smoke.finite_sum(res, ('cape', 'cin')), tt)
+
+    chip_smoke.compare_grads('options gradient', grad(device, tables),
+                             grad('cpu', AdiabatTables(coeffs.cpu())),
+                             skip=chip_smoke.repeated_level(p))
+
+
+# --- streaming ----------------------------------------------------------------
+
+def small_dataset(grid=(24, 40), L=30, seed=3):
+    dat_np, td = chip_smoke.synthetic(grid[0] * grid[1], L=L, seed=seed)
+    return chip_smoke.grid_dataset(dat_np, td, grid)
+
+
+@pytest.mark.parametrize('chunk', [960, 333, 100, 5000],
+                         ids=['one-chunk', 'ragged', 'many', 'larger'])
+def test_streamed_dataset_call_matches_whole(device, coeffs, chunk):
+    """A Dataset (level dim leading) through ``conv_properties_fused`` with
+    the default device, whole and streamed through the pinned buffers and
+    the side streams: every variable within the float32 budget (in
+    practice bit-equal), attrs kept; several runs, so that a buffer
+    reused too early would show."""
+    tables = AdiabatTables(coeffs.float())
+    ds = small_dataset()
+    whole = xapi.conv_properties_fused(ds, tables=tables)
+    for _ in range(3):
+        got = xapi.conv_properties_fused(ds, tables=tables,
+                                         stream_columns=chunk)
+        assert set(got.data_vars) == set(whole.data_vars)
+        chip_smoke.compare(
+            'streamed',
+            {k: torch.from_numpy(np.asarray(got[k].values))
+             for k in whole.data_vars},
+            {k: torch.from_numpy(np.asarray(whole[k].values))
+             for k in whole.data_vars}, 'float32')
+        assert all(got[k].attrs and got[k].dims == ('y', 'x')
+                   for k in got.data_vars)
+
+
+def test_stream_map_orders_its_streams(device):
+    """Chunks whose compute is long against their copies, a prefetch of 1
+    and of 3, and an output per chunk that depends on every input element:
+    a copy that ran ahead of its consumer, or a block handed back early,
+    would change a sum."""
+    rng = np.random.default_rng(8)
+    dat = {'pressure': rng.normal(size=(7001, 64)).astype(np.float32),
+           'surface': rng.normal(size=(7001,)).astype(np.float32),
+           'ids': rng.integers(0, 99, (7001,)).astype(np.int32)}
+
+    def fn(d):
+        x = d['pressure']
+        for _ in range(40):
+            x = torch.sin(x) + d['pressure']
+        return {'s': x.sum(-1) + d['surface'], 'ids': d['ids'] + 1,
+                'x': x}
+
+    want = fn({k: torch.from_numpy(v).to(device) for k, v in dat.items()})
+    for prefetch in (1, 3):
+        got = stream_map(fn, dat, batch_columns=512, prefetch=prefetch)
+        for k, v in want.items():
+            assert np.array_equal(got[k], v.cpu().numpy()), (k, prefetch)
+    assert got['ids'].dtype == np.int32 and got['x'].shape == (7001, 64)
+    empty = stream_map(fn, {k: v[:0] for k, v in dat.items()})
+    assert empty['x'].shape == (0, 64)
+
+
+def test_default_device_is_the_card(device, coeffs):
+    ds = small_dataset(grid=(4, 6), L=20)
+    tables = AdiabatTables(coeffs.float())
+    before = fused.cape_cin_kernel.launches, diag.diag_kernel.launches
+    out = xapi.min_conv_properties_fused(ds, tables=tables)
+    assert (fused.cape_cin_kernel.launches, diag.diag_kernel.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert isinstance(np.asarray(out['mixed_100_cape'].values), np.ndarray)
+    sb = xapi.surface_based_cape_cin_dataset(ds, tables=tables,
+                                             lcl_interp='linear',
+                                             post_zero_cin=True)
+    assert fused.cape_cin_kernel.launches == before[0] + 2
+    assert (np.asarray(sb['cin'].values) <= 0).all()

@@ -4,7 +4,11 @@ The JAX side runs its kernel in Pallas interpret mode on the CPU, as
 ``tests/test_fused.py`` does; the port runs its plain twin (CPU tensors never
 reach the CUDA kernel).  All seven outputs must have identical NaN patterns
 and agree to atol 1e-6, the bound ``test_fused.py`` uses; the profile tracks
-(``with_profile``) to ``assert_same``'s 1e-9.
+(``with_profile``) to ``assert_same``'s 1e-9.  The solve's four options
+(six settings) are held to JAX's fused solve at the same atol 1e-6, and to
+the port's own modular ``cape.cape_cin`` (fused equals modular, as
+``tests/test_fused_pipeline.py`` pins for the JAX package) at 1e-6 of each
+output's scale.
 """
 
 import jax.numpy as jnp
@@ -16,6 +20,7 @@ from xarray_parcel_tpu import adiabat as jad
 from xarray_parcel_tpu import fused as jfused
 from xarray_parcel_tpu import parcels as jparcels
 from xarray_parcel_tpu_torch import AdiabatTables
+from xarray_parcel_tpu_torch import cape as tcape
 from xarray_parcel_tpu_torch import diagnostics as tdiag
 from xarray_parcel_tpu_torch import fused as tfused
 
@@ -244,3 +249,89 @@ def test_float32_twin_within_budget(jax_tables):
         scale = max(1.0, float(np.nanmax(np.abs(a))))
         d = np.abs(a[both] - b[both]) / scale
         assert np.quantile(d, 0.95) <= 1e-4 and d.max() <= 5e-4, key
+
+
+# --- the solve's options -----------------------------------------------------
+
+SOLVE_KW = [dict(), dict(virtual_temperature_correction=False),
+            dict(lcl_interp='linear'), dict(pos_cape_neg_cin=False),
+            dict(post_zero_cin=True),
+            dict(virtual_temperature_correction=False, lcl_interp='linear',
+                 pos_cape_neg_cin=False, post_zero_cin=True)]
+
+
+def kw_id(kw):
+    return '-'.join(f'{k}={v}' for k, v in kw.items()) or 'default'
+
+
+@pytest.mark.parametrize('kw', SOLVE_KW, ids=kw_id)
+def test_options_match_jax(jax_tables, tables, kw):
+    """Each option alone and all four together, on the hard grid and on
+    the lane-edge columns: all seven outputs to atol 1e-6."""
+    for cols in (grid(B=48, seed=12),
+                 chip_smoke.lane_edge_columns(24, L=33, seed=33)):
+        want, got = run_both(jax_tables, tables, *cols, **kw)
+        for key in KEYS:
+            assert_same(want[key], got[key], atol=ATOL, rtol=0,
+                        name=f'{kw_id(kw)}/{key}')
+        assert (got['cape'].abs() > 1.0).sum() > 5
+
+
+@pytest.mark.parametrize('kw', SOLVE_KW, ids=kw_id)
+def test_options_profile_tracks_match_jax(jax_tables, tables, kw):
+    """The profile tracks are real temperatures under every option."""
+    p, t, td = grid(B=32, seed=13)
+    want, got = run_both(jax_tables, tables, p, t, td,
+                         with_lifted_index=False, with_profile=True, **kw)
+    for track in tfused.PROFILE:
+        assert_same(want['profile'][track], got['profile'][track],
+                    name=f'{kw_id(kw)}/{track}')
+
+
+@pytest.mark.parametrize('kw', SOLVE_KW, ids=kw_id)
+def test_options_fused_equals_modular(tables, kw):
+    """The port's fused solve against its own modular ``cape_cin`` with the
+    same options, on the JAX package's tables: same NaN pattern, 1e-6 of
+    each output's scale (both evaluate the same blended spectral row)."""
+    p, t, td = grid(B=48, seed=14)
+    args = [to_torch(x) for x in (p, t, td)]
+    res, sol = tfused.fused_surface_cape_cin(*args, tables=tables, **kw)
+    want_res, want_sol = tcape.surface_based_cape_cin(*args, tables=tables,
+                                                      **kw)
+    for key in KEYS:
+        if key == 'lifted_index':
+            continue
+        got = {**res, **sol}[key]
+        want = {**want_res, **want_sol}[key]
+        scale = max(1.0, float(np.nanmax(np.abs(want.numpy()))))
+        assert_same(want.numpy(), got, atol=1e-6 * scale, rtol=0,
+                    name=f'{kw_id(kw)}/{key}')
+
+
+def test_options_are_validated(tables):
+    p, t, td = (to_torch(x) for x in grid(B=24, seed=15))
+    with pytest.raises(TypeError):
+        tfused.fused_cape_cin(p, t, td, tables=tables, no_such_option=1)
+    with pytest.raises(ValueError, match='lcl_interp'):
+        tfused.fused_cape_cin(p, t, td, tables=tables, lcl_interp='cubic')
+    assert tfused.option_flags({}) == 0
+    assert [tfused.option_flags(kw) for kw in SOLVE_KW] == [0, 1, 2, 4, 8, 15]
+    row, scalars, k0 = tfused.prepass(p, p[:, 0], t[:, 0], td[:, 0], tables)
+    with pytest.raises(TypeError):
+        tfused.cape_cin_kernel(p, t, td, row, scalars, k0, vtc=False)
+
+
+@pytest.mark.parametrize('kw', SOLVE_KW[1:], ids=kw_id)
+def test_options_reach_the_gradient(tables, kw):
+    """``CapeCinSolve`` carries the options into its backward: the CAPE
+    gradient equals the plain twin's under the same options."""
+    p, t, td = (to_torch(x) for x in grid(B=24, seed=16))
+    t1 = t.clone().requires_grad_(True)
+    res, _ = tfused.fused_cape_cin(p, t1, td, tables=tables, **kw)
+    res['cape'].nansum().backward()
+    t2 = t.clone().requires_grad_(True)
+    row, scalars, k0 = tfused.prepass(p, p[:, 0], t2[:, 0], td[:, 0], tables)
+    out = tfused._column_outputs(p, t2, td, row, scalars, k0, **kw)
+    out[0].nansum().backward()
+    torch.testing.assert_close(t1.grad, t2.grad, equal_nan=True)
+    assert (t1.grad.nan_to_num() != 0).any()

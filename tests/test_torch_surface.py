@@ -1,0 +1,877 @@
+"""The port's user surfaces against the JAX package's.
+
+The same inputs, made from a seed with numpy, go through the JAX package's
+``api``/``xarray_api``/``fieldset``/``xr_lite``/``native``/``utils.compare``
+and the port's copies, on ``device='cpu'``.
+
+Tolerances.  Array facade and per-function Dataset surface, float64:
+identical NaN patterns and 1e-9 absolute (``assert_same``); the
+reference-signature ``lfc_el``/``cape_cin_base`` adapters run in log
+pressure where the JAX functions compare in pressure, so their pressures
+get 1e-9 relative.  The Dataset pipelines: the JAX surface lowers every
+Dataset to float32 (and then computes against float64 tables), so against it
+the port's float32 run is held to the float32 budget (p95 <= 1e-4, max <=
+5e-4 of each output's scale, booleans equal in >= 95% of columns), with
+variables, dims, coords and attrs equal exactly; the port's float64 lowering
+(``dtype=np.float64``) is held to the JAX package's tensor-level pipelines
+in float64 at 1e-6 of each output's scale.  Every layout of the same
+Dataset (level dim leading or trailing, permuted dims, a 1-D pressure
+coordinate) and every ``stream_columns`` gives the whole call's values to
+1e-6 of scale.
+"""
+
+import importlib
+import types
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from xarray_parcel_tpu import adiabat as jad
+from xarray_parcel_tpu import api as japi
+from xarray_parcel_tpu import fieldset as jfieldset
+from xarray_parcel_tpu import native as jnative
+from xarray_parcel_tpu import ops as jops
+from xarray_parcel_tpu import pipeline as jpipeline
+from xarray_parcel_tpu import xarray_api as jx
+from xarray_parcel_tpu import xr_lite as jxr
+from xarray_parcel_tpu_torch import AdiabatTables
+from xarray_parcel_tpu_torch import api as tapi
+from xarray_parcel_tpu_torch import fieldset as tfieldset
+from xarray_parcel_tpu_torch import native as tnative
+from xarray_parcel_tpu_torch import ops as tops
+from xarray_parcel_tpu_torch import xarray_api as tx
+from xarray_parcel_tpu_torch import xr_lite as txr
+
+import chip_smoke
+from test_torch_ops import assert_same, to_torch
+
+# (Each package's ``utils.compare`` module is shadowed by its function.)
+jcompare = importlib.import_module('xarray_parcel_tpu.utils.compare')
+tcompare = importlib.import_module('xarray_parcel_tpu_torch.utils.compare')
+
+V = 'model_level_number'
+NY, NX, L = 3, 4, 16
+PIPELINES = ('conv_properties_fused', 'min_conv_properties_fused',
+             'conv_properties', 'min_conv_properties')
+
+
+@pytest.fixture(scope='module')
+def jax_tables():
+    return jad.load_moist_adiabat_lookups()
+
+
+@pytest.fixture(scope='module')
+def tables(jax_tables):
+    return AdiabatTables.from_numpy(
+        np.asarray(jax_tables.coeffs), 'cpu', torch.float64,
+        curves=np.asarray(jax_tables.curves),
+        lookup=np.asarray(jax_tables.lookup))
+
+
+@pytest.fixture(scope='module')
+def tables32(jax_tables):
+    return AdiabatTables.from_numpy(np.asarray(jax_tables.coeffs), 'cpu',
+                                    torch.float32)
+
+
+def columns(n=NY * NX, levels=L, seed=0):
+    """The synthetic soundings and winds as float64 (B, L)/(B,) arrays,
+    with the dewpoint."""
+    dat, td = chip_smoke.synthetic(n, L=levels, seed=seed)
+    dat = {k: v.astype(np.float64) for k, v in dat.items()}
+    return dat, td.astype(np.float64)
+
+
+def dataset(layout='trailing', seed=0, ny=NY, nx=NX, dewpoint=False):
+    """The columns as an ``xr_lite`` Dataset on a (y, x) grid.  ``layout``:
+    'trailing' (y, x, level), 'leading' (level, y, x), 'permuted' (each
+    variable in its own dim order) or 'mixed' (a 1-D pressure coordinate
+    variable and surface winds over x alone)."""
+    dat, td = columns(ny * nx, seed=seed)
+    if dewpoint:
+        dat['dewpoint'] = td
+    if layout == 'mixed':
+        dat['pressure'][:] = dat['pressure'][0]
+        for k in ('surface_wind_u', 'surface_wind_v'):
+            dat[k] = np.tile(dat[k][:nx], ny)
+    orders = {'trailing': [('y', 'x', V)], 'leading': [(V, 'y', 'x')],
+              'permuted': [('x', V, 'y'), (V, 'x', 'y'), ('y', 'x', V)],
+              'mixed': [('y', 'x', V)]}[layout]
+    data = {}
+    for i, (k, v) in enumerate(dat.items()):
+        if v.ndim == 2:
+            da = txr.DataArray(v.reshape(ny, nx, -1), ('y', 'x', V))
+            da = da.transpose(*orders[i % len(orders)])
+        else:
+            da = txr.DataArray(v.reshape(ny, nx), ('y', 'x'))
+            if layout == 'permuted':
+                da = da.transpose('x', 'y')
+        data[k] = (da.dims, np.ascontiguousarray(da.values))
+    if layout == 'mixed':
+        data['pressure'] = ((V,), dat['pressure'][0].copy())
+        for k in ('surface_wind_u', 'surface_wind_v'):
+            data[k] = (('x',), dat[k][:nx].copy())
+    return txr.Dataset(data, coords={'y': np.arange(ny) * 1.5,
+                                     'x': np.arange(nx) * 2.0,
+                                     V: np.arange(1, L + 1)})
+
+
+def values(c):
+    return np.asarray(c.values if hasattr(c, 'values') else c)
+
+
+def assert_meta_same(want, got, name=''):
+    """Dims, attrs and coordinates of two DataArrays or Datasets."""
+    if hasattr(want, 'data_vars'):
+        # (The JAX side returns its dicts in sorted key order.)
+        assert set(got.data_vars) == set(want.data_vars), name
+        assert set(got.coords) == set(want.coords), name
+        for k in want.coords:
+            np.testing.assert_array_equal(values(got.coords[k]),
+                                          values(want.coords[k]), err_msg=k)
+        for k in want.data_vars:
+            assert got[k].dims == want[k].dims, f'{name}/{k}'
+            assert got[k].attrs == want[k].attrs, f'{name}/{k}'
+            assert got[k].attrs or k.startswith('all_') or k.startswith(
+                'increasing_') or k.startswith('decreasing_') or k in (
+                    'area', 'x', 'dx', 'x_from', 'x_to'), f'{name}/{k}'
+        return
+    assert got.dims == want.dims and got.attrs == want.attrs, name
+    assert got.name == want.name, name
+    assert set(got.coords) == set(want.coords), name
+    for k in want.coords:
+        np.testing.assert_array_equal(values(got.coords[k]),
+                                      values(want.coords[k]), err_msg=k)
+
+
+def assert_xr_same(want, got, atol=1e-9, rtol=1e-12, name=''):
+    """Metadata equal, values within ``assert_same``'s tolerance; recurses
+    into tuples of Datasets/DataArrays."""
+    if isinstance(want, tuple):
+        assert len(want) == len(got)
+        for i, (a, b) in enumerate(zip(want, got)):
+            assert_xr_same(a, b, atol, rtol, f'{name}[{i}]')
+        return
+    assert_meta_same(want, got, name)
+    if hasattr(want, 'data_vars'):
+        for k in want.data_vars:
+            assert_same(values(want[k]), values(got[k]), atol, rtol,
+                        f'{name}/{k}')
+    else:
+        assert_same(values(want), values(got), atol, rtol, name)
+
+
+def scale_of(a):
+    a = np.asarray(a)
+    return max(1.0, float(np.nanmax(np.abs(a), initial=0.0)))
+
+
+def assert_scaled(want, got, rel=1e-6, name=''):
+    """Identical NaN pattern and ``rel`` of the output's scale; booleans
+    exactly."""
+    want = np.asarray(want)
+    assert_same(want, np.asarray(got), atol=(
+        0 if want.dtype == bool else rel * scale_of(want)), rtol=0, name=name)
+
+
+def assert_f32_budget(want, got, name=''):
+    """The float32 budget against a float64-tabled reference."""
+    a, b = np.asarray(want), np.asarray(got)
+    assert a.shape == b.shape, name
+    if a.dtype == bool:
+        assert np.mean(a == b) >= 0.95, name
+        return
+    a, b = a.astype(np.float64), b.astype(np.float64)
+    assert np.mean(np.isnan(a) != np.isnan(b)) <= 0.01, name
+    both = ~np.isnan(a) & ~np.isnan(b)
+    if both.any():
+        d = np.abs(a[both] - b[both]) / scale_of(a)
+        assert np.quantile(d, 0.95) <= 1e-4 and d.max() <= 5e-4, (
+            name, d.max())
+
+
+# --- the facade's namespace --------------------------------------------------
+
+def public(module):
+    return {n for n in dir(module) if not n.startswith('_')
+            and not isinstance(getattr(module, n), types.ModuleType)}
+
+
+def test_every_api_name_is_in_the_port():
+    missing = public(japi) - public(tapi)
+    assert not missing, f'api names missing from the port: {sorted(missing)}'
+    for n in ('adiabat', 'thermo'):
+        assert isinstance(getattr(tapi, n), types.ModuleType)
+
+
+def test_every_xarray_api_name_is_in_the_port():
+    """All but the entry points that wait for several devices and
+    ahead-of-time artifacts."""
+    later = {'serve', 'jax', 'HAVE_XARRAY', 'xr'}
+    missing = public(jx) - public(tx) - later
+    assert not missing, f'xarray_api names missing: {sorted(missing)}'
+    assert 'serve' not in public(tx)
+
+
+# --- fieldset ----------------------------------------------------------------
+
+NAMES = ['cape', 'mu_cape', 'mixed_100_cin', 'mixed_50_lifted_index',
+         'mu_dci', 'mu_mixing_ratio', 'lapse_rate_700_500', 'temp_500',
+         'freezing_level', 'melting_level', 'shear_u', 'positive_shear',
+         'ship', 'proxy_Kunz2007', 'proxy_SHIP_0.1', 'temp_850',
+         'lapse_rate_850_700', 'sb_cape', 'sb_lfc_pressure',
+         'environment_virtual_temperature', 'wet_bulb_temperature',
+         'no_such_variable', 'trapz']
+
+
+@pytest.mark.parametrize('name', NAMES)
+def test_attrs_for_matches_jax(name):
+    assert tfieldset.attrs_for(name) == jfieldset.attrs_for(name)
+
+
+def test_attrs_for_resolves_a_prefix_before_a_parameterised_name():
+    """Where the JAX registry gives ``{}``: a known prefix before
+    ``temp_<p>``/``lapse_rate_<p>_<p>``."""
+    assert jfieldset.attrs_for('mu_temp_850') == {}
+    got = tfieldset.attrs_for('mu_temp_850')
+    assert got['units'] == 'K' and '850 hPa' in got['description']
+    assert 'most-unstable' in got['description']
+    got = tfieldset.attrs_for('mixed_50_lapse_rate_850_700')
+    assert got['units'] == 'K km$^{-1}$' and '850-700' in got['description']
+    assert tfieldset.attrs_for('sb_temp_700')['description'] == \
+        'Temperature at 700 hPa.'
+
+
+def test_fieldset_is_a_dict_with_attrs():
+    fs = tfieldset.annotate({'cape': torch.ones(2), 'cin': torch.zeros(2)},
+                            {'cape': 'my text'})
+    js = jfieldset.annotate({'cape': 1, 'cin': 0}, {'cape': 'my text'})
+    assert fs.attrs == js.attrs and fs.attrs['cape']['description'] == \
+        'my text'
+    assert fs.cape is fs['cape'] and isinstance(fs, dict)
+    with pytest.raises(AttributeError):
+        fs.nothing
+
+
+# --- xr_lite, native, compare ------------------------------------------------
+
+def test_xr_lite_behaves_as_the_jax_copy():
+    a = np.arange(24.0).reshape(2, 3, 4)
+    for mod in (txr, jxr):
+        da = mod.DataArray(a, ('y', 'x', V), coords={'y': [0, 1]},
+                           attrs={'units': 'K'}, name='t')
+        tr = da.transpose(V)
+        assert tr.dims == (V, 'y', 'x') and tr.shape == (4, 2, 3)
+        assert da.transpose().dims == (V, 'x', 'y')
+        ds = mod.Dataset({'t': da, 's': (('y', 'x'), a[..., 0])},
+                         coords={'x': [1, 2, 3]})
+        assert ds.dims == {'y': 2, 'x': 3, V: 4} and 't' in ds and 'x' in ds
+        assert ds.t.attrs == {'units': 'K'} and list(ds) == ['t', 's']
+        out = ds.assign_coords({'y': [5, 6]})
+        assert values(out.coords['y']).tolist() == [5, 6]
+        assert 'y' not in ds.coords
+        with pytest.raises(ValueError):
+            mod.DataArray(a, ('y', 'x'))
+        with pytest.raises(KeyError):
+            ds['nothing']
+
+
+def test_xr_lite_merge_raises_on_conflict():
+    a = txr.Dataset({'t': (('y',), np.array([1.0, np.nan]))},
+                    coords={'y': [0, 1]})
+    same = txr.Dataset({'t': (('y',), np.array([1.0, np.nan])),
+                        'u': (('y',), np.array([3, 4]))},
+                       coords={'y': [0, 1]})
+    out = txr.merge([a, same, txr.DataArray([7.0, 8.0], ('y',), name='w')])
+    assert list(out.data_vars) == ['t', 'u', 'w'] and 'y' in out.coords
+    other = txr.Dataset({'t': (('y',), np.array([2.0, np.nan]))})
+    with pytest.raises(ValueError, match="conflicting values for variable "
+                                         "'t'"):
+        txr.merge([a, other])
+    with pytest.raises(ValueError, match='coordinate'):
+        txr.merge([a, txr.Dataset({}, coords={'y': [5, 6]})])
+    with pytest.raises(ValueError, match='unnamed'):
+        txr.merge([txr.DataArray([1.0], ('y',))])
+    # The JAX package's copy lets the last one win.
+    assert values(jxr.merge([jxr.Dataset({'t': (('y',), [1.0])}),
+                             jxr.Dataset({'t': (('y',), [2.0])})])['t'])[0] \
+        == 2.0
+
+
+def test_native_matches_jax():
+    rng = np.random.default_rng(3)
+    p = -np.sort(-rng.uniform(100, 1000, (6, 5, 9)), axis=-1)
+    p[0, 0, -3:] = np.nan               # NaN padding at the top: valid
+    p[1, 1, 4] = np.nan                 # a finite level after a NaN: invalid
+    p[2, 2, 3] = p[2, 2, 2]             # not strictly decreasing
+    p[3, 3] = np.nan
+    for dtype in (np.float64, np.float32):
+        q = p.astype(dtype)
+        np.testing.assert_array_equal(tnative.validate_columns(q),
+                                      jnative.validate_columns(q))
+    assert not tnative.validate_columns(p)[1, 1]
+    assert tnative.validate_columns(p)[0, 0]
+    a = rng.normal(size=(7, 3, 4))
+    for mod in (tnative, jnative):
+        out = mod.levels_to_last(a)
+        assert out.dtype == np.float32 and out.shape == (3, 4, 7)
+        assert out.flags.c_contiguous
+    np.testing.assert_array_equal(tnative.levels_to_last(a),
+                                  jnative.levels_to_last(a))
+    np.testing.assert_array_equal(tnative.repack_to_f32(a),
+                                  jnative.repack_to_f32(a))
+    f32 = a.astype(np.float32)
+    assert tnative.repack_to_f32(f32) is f32
+    fields = {'pressure': p.copy(), 'ids': np.arange(p.size).reshape(p.shape),
+              't32': p.astype(np.float32)}
+    fields['pressure'][4, :, :2] = np.nan
+    want = jnative.compact_left(fields, 'pressure')
+    got = tnative.compact_left(fields, 'pressure')
+    for k in want:
+        assert got[k].dtype == want[k].dtype, k
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+@pytest.mark.parametrize('dtype', [np.float32, np.float64])
+@pytest.mark.parametrize('shape', [(7, 5, 11), (9, 1), (4, 3, 2, 13)])
+def test_levels_to_last_threaded(monkeypatch, shape, dtype):
+    """Above its size threshold ``levels_to_last`` moves column blocks on
+    several threads; the result is the single-pass move's, exactly, also
+    when the blocks do not divide the columns and for a view."""
+    a = np.random.default_rng(5).normal(size=shape).astype(dtype)
+    want = jnative.levels_to_last(a)
+    monkeypatch.setattr(tnative, '_THREADED_FROM', 1)
+    monkeypatch.setattr(tnative, '_THREADS', 4)
+    got = tnative.levels_to_last(a)
+    assert got.dtype == np.float32 and got.flags.c_contiguous
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(tnative.levels_to_last(a[::-1]),
+                                  jnative.levels_to_last(a[::-1]))
+
+
+def test_compare_matches_jax(capsys):
+    rng = np.random.default_rng(4)
+    x = rng.normal(size=(5, 6))
+    y = x + rng.normal(0, 1e-7, x.shape)
+    x[0, 0] = y[0, 0] = np.nan
+    assert tcompare.compare(x, y) == jcompare.compare(x, y)
+    assert tcompare.compare(torch.from_numpy(x), y, tolerance=1e-9) == \
+        jcompare.compare(x, y, tolerance=1e-9)
+    y[1, 1] = np.nan
+    assert not tcompare.compare(x, y)['nan_pattern_equal']
+    a = {'out_cape': x, 'out_cin': y, 'in_p': x}
+    b = {'out_cape': x, 'out_cin': x, 'out_extra': x}
+    got = tcompare.compare_archives(a, b, print_report=False)
+    want = jcompare.compare_archives(a, b, print_report=False)
+    assert got == want and got['only_in_historic'] == ['extra']
+    tcompare.compare_results({'cape': x}, {'cape': x})
+    assert 'Max abs. diff' in capsys.readouterr().out
+
+
+# --- the ops the facade names ------------------------------------------------
+
+def test_interp1d_matches_jax_and_numpy():
+    rng = np.random.default_rng(5)
+    xp = np.sort(rng.uniform(0, 10, (4, 9)), axis=-1)
+    fp = rng.normal(size=(4, 9))
+    at = rng.uniform(-1, 11, (4, 6))
+    at[1, 2] = np.nan
+    at[2, 0] = xp[2, 3]                 # a query exactly on a knot
+    want = jops.interp1d(jnp.asarray(at), jnp.asarray(xp), jnp.asarray(fp))
+    got = tops.interp1d(to_torch(at), to_torch(xp), to_torch(fp))
+    assert_same(want, got)
+    np.testing.assert_allclose(got[0].numpy(), np.interp(at[0], xp[0], fp[0]),
+                               atol=1e-12)
+    shared = tops.interp1d(to_torch(at), to_torch(xp[0]), to_torch(fp[0]))
+    assert shared.shape == (4, 6)       # one knot vector for every column
+    assert tapi.interp1d_numba is tapi.interp1d
+
+
+def test_compact_left_and_counts_match_jax():
+    rng = np.random.default_rng(6)
+    p = rng.uniform(100, 1000, (5, 8))
+    p[0, :3] = np.nan
+    p[1, :7] = np.nan
+    p[2] = np.nan
+    p[3, 4] = np.nan                    # an interior NaN stays
+    fields = {'pressure': p, 't': rng.normal(size=(5, 8)),
+              'ids': np.arange(40).reshape(5, 8)}
+    want = jops.compact_left({k: jnp.asarray(v) for k, v in fields.items()},
+                             'pressure')
+    got = tops.compact_left({k: to_torch(v) for k, v in fields.items()},
+                            'pressure')
+    assert_same(want, got)
+    assert got['ids'].dtype == torch.float32
+    assert tapi.shift_out_nans is tops.compact_left
+    where = p > 500
+    for name in ('nancount', 'any_valid'):
+        assert_same(getattr(jops, name)(jnp.asarray(p)),
+                    getattr(tops, name)(to_torch(p)))
+        assert_same(getattr(jops, name)(jnp.asarray(p),
+                                        where=jnp.asarray(where)),
+                    getattr(tops, name)(to_torch(p), where=to_torch(where)))
+
+
+# --- the array facade --------------------------------------------------------
+
+@pytest.fixture(scope='module')
+def profile(jax_tables):
+    """A parcel profile with its LCL (JAX, numpy values) on hard columns."""
+    p, t, td = chip_smoke.hard_columns(24, L=20, seed=8)
+    prof = japi.parcel_profile_with_lcl(
+        *(jnp.asarray(x) for x in (p, t, td, p[:, 0], t[:, 0], td[:, 0])),
+        tables=jax_tables)
+    return (p, t, td), {k: np.asarray(v) for k, v in prof.items()}
+
+
+def test_facade_lfc_el_and_cape_cin_base(profile):
+    _, prof = profile
+    args = [prof[k] for k in ('pressure', 'virtual_temperature',
+                              'environment_virtual_temperature',
+                              'lcl_pressure', 'lcl_virtual_temperature')]
+    want = japi.lfc_el(*(jnp.asarray(a) for a in args))
+    got = tapi.lfc_el(*(to_torch(a) for a in args))
+    assert set(got) == set(want)
+    for k in want:
+        assert_same(want[k], got[k], atol=1e-9, rtol=1e-9, name=k)
+    assert np.isfinite(np.asarray(want['lfc_pressure'])).sum() > 5
+    for kw in (dict(), dict(pos_cape_neg_cin=False),
+               dict(post_zero_cin=True)):
+        base = (prof['pressure'], prof['environment_virtual_temperature'],
+                np.asarray(want['lfc_pressure']),
+                np.asarray(want['el_pressure']), prof['virtual_temperature'])
+        assert_same(japi.cape_cin_base(*(jnp.asarray(a) for a in base), **kw),
+                    tapi.cape_cin_base(*(to_torch(a) for a in base), **kw),
+                    atol=1e-7, rtol=1e-9, name=str(kw))
+
+
+@pytest.mark.parametrize('start', [0, 3])
+def test_facade_trap_around_zeros(profile, start):
+    _, prof = profile
+    x = prof['pressure']
+    y = prof['virtual_temperature'] - prof['environment_virtual_temperature']
+    want = japi.trap_around_zeros(jnp.asarray(x), jnp.asarray(y), start=start)
+    got = tapi.trap_around_zeros(to_torch(x), to_torch(y), start=start)
+    assert set(got[0]) == set(want[0]) == {'area', 'x', 'dx', 'x_from',
+                                           'x_to'}
+    assert_same(want, got)
+
+
+def test_facade_wrappers_rename_and_annotate(tables, jax_tables):
+    p, t, td = chip_smoke.hard_columns(20, L=18, seed=9)
+    jargs = [jnp.asarray(x) for x in (p, t, td)]
+    targs = [to_torch(x) for x in (p, t, td)]
+    for name, n_out in (('surface_based_cape_cin', 2),
+                        ('most_unstable_cape_cin', 3),
+                        ('mixed_layer_cape_cin', 3)):
+        want = getattr(japi, name)(*jargs, prefix='sb', tables=jax_tables)
+        got = getattr(tapi, name)(*targs, prefix='sb', tables=tables)
+        assert len(got) == len(want) == n_out
+        assert set(got[0]) == {'sb_cape', 'sb_cin'}
+        assert got[0].attrs == want[0].attrs
+        assert_same(tuple(dict(w) for w in want), tuple(dict(g) for g in got))
+    prof = tapi.parcel_profile_with_lcl(*targs, targs[0][:, 0], targs[1][:, 0],
+                                        targs[2][:, 0], tables=tables)
+    jprof = japi.parcel_profile_with_lcl(*jargs, jargs[0][:, 0],
+                                         jargs[1][:, 0], jargs[2][:, 0],
+                                         tables=jax_tables)
+    assert prof.attrs == jprof.attrs
+    li = tapi.lifted_index(prof, prefix='mu', description='mine')
+    jli = japi.lifted_index(jprof, prefix='mu', description='mine')
+    assert li.attrs == jli.attrs
+    assert_same(dict(jli), dict(li))
+    dci = tapi.deep_convective_index(*targs, li['mu_lifted_index'],
+                                     prefix='mu')
+    jdci = japi.deep_convective_index(*jargs, jli['mu_lifted_index'],
+                                      prefix='mu')
+    assert dci.attrs == jdci.attrs
+    assert_same(dict(jdci), dict(dci))
+    assert_same(japi.dry_lapse(jargs[0], jargs[1][:, 0]),
+                tapi.dry_lapse(targs[0], targs[1][:, 0]))
+    assert_same(japi.dry_lapse(jargs[0], 290.0, 1000.0),
+                tapi.dry_lapse(targs[0], 290.0, 1000.0))
+    pp = tapi.parcel_profile(targs[0], targs[0][:, 0], targs[1][:, 0],
+                             targs[2][:, 0], tables=tables)
+    assert_same(dict(japi.parcel_profile(jargs[0], jargs[0][:, 0],
+                                         jargs[1][:, 0], jargs[2][:, 0],
+                                         tables=jax_tables)), dict(pp))
+    x = np.array([273.154, 299.996])
+    np.testing.assert_allclose(tapi.round_to(to_torch(x), 0.02).numpy(),
+                               np.asarray(japi.round_to(x, 0.02)), atol=1e-12)
+
+
+def test_facade_valid_data():
+    p, _, _ = chip_smoke.hard_columns(20, L=12, seed=10)
+    p[3, 5] = p[3, 4] + 1.0
+    for dat in (p, {'pressure': p}):
+        np.testing.assert_array_equal(tapi.valid_data(dat, strict=False),
+                                      japi.valid_data(dat, strict=False))
+    np.testing.assert_array_equal(
+        tapi.valid_data(to_torch(p), strict=False),
+        japi.valid_data(p, strict=False))
+    with pytest.raises(ValueError, match='Pressures must decrease'):
+        tapi.valid_data(p)
+    assert tapi.lookup_tables_loaded() in (True, False)
+
+
+# --- the Dataset pipelines ---------------------------------------------------
+
+@pytest.fixture(scope='module')
+def jax_pipeline_out(jax_tables):
+    """The JAX package's Dataset pipelines, proxies and surface solve on the
+    trailing-layout Dataset."""
+    ds = dataset()
+    out = {name: getattr(jx, name)(ds, tables=jax_tables)
+           for name in PIPELINES}
+    out['storm_proxies'] = jx.storm_proxies(out['conv_properties_fused'])
+    return out
+
+
+@pytest.fixture(scope='module')
+def port_pipeline_out(tables32):
+    ds = dataset()
+    out = {name: getattr(tx, name)(ds, tables=tables32, device='cpu')
+           for name in PIPELINES}
+    out['storm_proxies'] = tx.storm_proxies(out['conv_properties_fused'],
+                                            device='cpu')
+    return out
+
+
+@pytest.mark.parametrize('name', PIPELINES + ('storm_proxies',))
+def test_dataset_pipeline_matches_jax(jax_pipeline_out, port_pipeline_out,
+                                      name):
+    """Variables, dims, coords and attrs exactly; values within the float32
+    budget (the JAX surface lowers to float32 too)."""
+    want, got = jax_pipeline_out[name], port_pipeline_out[name]
+    assert_meta_same(want, got, name)
+    for k in want.data_vars:
+        assert values(got[k]).shape == (NY, NX), k
+        assert_f32_budget(values(want[k]), values(got[k]), f'{name}/{k}')
+    floats = [k for k in got.data_vars if values(got[k]).dtype != bool]
+    assert all(values(got[k]).dtype == np.float32 for k in floats)
+
+
+@pytest.mark.parametrize('name', PIPELINES)
+def test_dataset_pipeline_float64_matches_jax_tensors(jax_tables, tables,
+                                                      name):
+    """The port's float64 lowering against the JAX package's tensor-level
+    pipeline in float64: 1e-6 of each output's scale."""
+    dat, _ = columns()
+    want = getattr(jpipeline, name)(
+        {k: jnp.asarray(v) for k, v in dat.items()}, tables=jax_tables)
+    got = getattr(tx, name)(dataset(), tables=tables, device='cpu',
+                            dtype=np.float64)
+    assert set(got.data_vars) == set(want)
+    for k, v in want.items():
+        assert values(got[k]).dtype in (np.float64, np.bool_)
+        assert_scaled(np.asarray(v).reshape(NY, NX), values(got[k]),
+                      name=f'{name}/{k}')
+
+
+@pytest.mark.parametrize('layout', ['leading', 'permuted'])
+def test_dataset_layouts_give_the_same_values(port_pipeline_out, tables32,
+                                              layout):
+    """The level dim leading (the ``levels_to_last`` repack) and every
+    variable in its own dim order.  'permuted' has x before y, so the
+    output dims follow."""
+    got = tx.conv_properties_fused(dataset(layout), tables=tables32,
+                                   device='cpu')
+    whole = port_pipeline_out['conv_properties_fused']
+    for k in whole.data_vars:
+        ref = values(whole[k])
+        if got[k].dims == ('x', 'y'):
+            ref = ref.T
+        else:
+            assert got[k].dims == ('y', 'x')
+        assert_scaled(ref, values(got[k]), name=f'{layout}/{k}')
+        assert got[k].attrs == whole[k].attrs
+    assert set(got.coords) == {'y', 'x'}
+
+
+def test_mixed_dims_dataset_broadcasts_on_the_device(tables32):
+    """A 1-D pressure coordinate variable and surface winds over x alone:
+    lowered at their own size, broadcast after the copy; the same values as
+    the Dataset with every variable on the full grid."""
+    mixed = dataset('mixed')
+    fields, batch_dims = tx.from_dataset(mixed)
+    assert batch_dims == ('y', 'x')
+    assert fields['pressure'].shape == (L,)              # L floats cross
+    assert fields['surface_wind_u'].shape == (NX,)
+    assert fields['temperature'].shape == (NY, NX, L)
+    full = dataset('mixed')
+    for k in ('pressure', 'surface_wind_u', 'surface_wind_v'):
+        v = values(mixed[k])
+        target = (NY, NX, L) if k == 'pressure' else (NY, NX)
+        dims = ('y', 'x', V) if k == 'pressure' else ('y', 'x')
+        full[k] = (dims, np.broadcast_to(v, target).copy())
+    want = tx.conv_properties_fused(full, tables=tables32, device='cpu')
+    for kw in (dict(), dict(stream_columns=5)):
+        got = tx.conv_properties_fused(mixed, tables=tables32, device='cpu',
+                                       **kw)
+        assert_meta_same(want, got)
+        for k in want.data_vars:
+            assert_scaled(values(want[k]), values(got[k]), name=k)
+
+
+@pytest.mark.parametrize('chunk', [5, 12, 100], ids=['ragged', 'one-exact',
+                                                     'one-larger'])
+@pytest.mark.parametrize('name', ['conv_properties_fused',
+                                  'min_conv_properties'])
+def test_stream_columns_gives_the_whole_call(port_pipeline_out, tables32,
+                                             name, chunk):
+    got = getattr(tx, name)(dataset(), tables=tables32, device='cpu',
+                            stream_columns=chunk)
+    whole = port_pipeline_out[name]
+    assert_meta_same(whole, got, name)
+    for k in whole.data_vars:
+        assert_scaled(values(whole[k]), values(got[k]), rel=1e-5,
+                      name=f'{name}/{k}')
+
+
+def test_stream_columns_empty_batch_and_single_column(tables32):
+    ds = dataset()
+    empty = txr.Dataset({k: (v.dims, v.values[:0])
+                         for k, v in ds.data_vars.items()})
+    got = tx.conv_properties_fused(empty, tables=tables32, device='cpu',
+                                   stream_columns=4)
+    assert got['mu_cape'].shape == (0, NX) and got['mu_cape'].attrs
+    one = txr.Dataset({k: ((V,), v.values[0, 0]) if v.ndim == 3
+                       else ((), v.values[0, 0])
+                       for k, v in ds.data_vars.items()})
+    whole = tx.min_conv_properties_fused(one, tables=tables32, device='cpu')
+    assert whole['mixed_100_cape'].shape == ()
+    with pytest.raises(ValueError, match='stream_columns'):
+        tx.min_conv_properties_fused(one, tables=tables32, device='cpu',
+                                     stream_columns=4)
+
+
+SOLVE_KW = [dict(), dict(virtual_temperature_correction=False),
+            dict(lcl_interp='linear'), dict(pos_cape_neg_cin=False),
+            dict(post_zero_cin=True),
+            dict(virtual_temperature_correction=False, lcl_interp='linear',
+                 pos_cape_neg_cin=False, post_zero_cin=True)]
+
+
+@pytest.mark.parametrize('fused', [True, False], ids=['fused', 'modular'])
+@pytest.mark.parametrize('kw', SOLVE_KW, ids=lambda kw: '-'.join(kw) or
+                         'default')
+def test_surface_based_cape_cin_dataset_matches_jax(jax_tables, tables32,
+                                                    tables, fused, kw):
+    """The caller of the solve's options: metadata exactly, values within
+    the float32 budget of the JAX surface; and the float64 lowering within
+    1e-6 of scale of the JAX package's float64 solve."""
+    ds = dataset(dewpoint=True, seed=3)
+    want = jx.surface_based_cape_cin_dataset(ds, tables=jax_tables,
+                                             fused=fused, **kw)
+    got = tx.surface_based_cape_cin_dataset(ds, tables=tables32,
+                                            device='cpu', fused=fused, **kw)
+    assert_meta_same(want, got)
+    for k in want.data_vars:
+        assert_f32_budget(values(want[k]), values(got[k]), k)
+    wide = tx.surface_based_cape_cin_dataset(ds, tables=tables, device='cpu',
+                                             fused=fused, dtype=np.float64,
+                                             **kw)
+    dat, td = columns(seed=3)
+    core = jx._fused_sb_core if fused else jx._xla_sb_core
+    ref = core(jnp.asarray(dat['pressure']), jnp.asarray(dat['temperature']),
+               jnp.asarray(td), tables=jax_tables, **kw)
+    for k, v in ref.items():
+        assert_scaled(np.asarray(v).reshape(NY, NX), values(wide[k]), name=k)
+    streamed = tx.surface_based_cape_cin_dataset(
+        ds, tables=tables, device='cpu', fused=fused, dtype=np.float64,
+        stream_columns=5, **kw)
+    for k in wide.data_vars:
+        assert_scaled(values(wide[k]), values(streamed[k]), name=k)
+
+
+def test_dataset_surfaces_need_the_card_by_default(tables32):
+    if torch.cuda.is_available():
+        pytest.skip('a CUDA device is present: the default device exists')
+    ds = dataset(dewpoint=True)
+    da = ds['temperature']
+    for call in (lambda: tx.conv_properties_fused(ds, tables=tables32),
+                 lambda: tx.storm_proxies(ds),
+                 lambda: tx.surface_based_cape_cin_dataset(ds),
+                 lambda: tx.lcl(ds['pressure'], da, ds['dewpoint']),
+                 lambda: tx.wet_bulb_temperature_fast(da, ds['dewpoint']),
+                 lambda: tx.get_layer(ds),
+                 lambda: tapi.moist_adiabat_tables()):
+        with pytest.raises((RuntimeError, ValueError), match='CUDA|needs'):
+            call()
+
+
+def test_from_dataset_and_valid_data(tables32):
+    ds = dataset('leading')
+    want_f, want_dims = jx.from_dataset(ds)
+    got_f, got_dims = tx.from_dataset(ds)
+    assert got_dims == want_dims == ('y', 'x')
+    for k in want_f:
+        assert got_f[k].dtype == np.float32
+        np.testing.assert_array_equal(got_f[k], np.asarray(want_f[k]))
+    wide, _ = tx.from_dataset(ds, dtype=np.float64)
+    assert wide['pressure'].dtype == np.float64
+    with pytest.raises(ValueError, match='none of the recognized'):
+        tx.from_dataset(txr.Dataset({'foo': (('y',), np.zeros(2))}))
+    np.testing.assert_array_equal(tx.valid_data(ds), jx.valid_data(ds))
+    bad = dataset()
+    bad.coords[V] = np.arange(L) * 2
+    assert not tx.valid_data(bad, strict=False).any()
+    with pytest.raises(ValueError, match='Index increments'):
+        tx.valid_data(bad)
+    lifted = tx.to_dataset({'mu_cape': np.zeros((NY, NX)),
+                            'temperature': np.zeros((NY, NX, L + 1))},
+                           ('y', 'x'), coords={'y': np.arange(NY)})
+    assert lifted['temperature'].dims == ('y', 'x', V)
+    assert values(lifted.coords[V]).tolist() == list(range(L + 1))
+
+
+def test_storm_proxies_checks_its_inputs(port_pipeline_out):
+    conv = port_pipeline_out['min_conv_properties_fused']
+    with pytest.raises(ValueError, match='storm_proxies needs'):
+        tx.storm_proxies(conv, device='cpu')
+    full = port_pipeline_out['conv_properties_fused']
+    permuted = full.transpose('x', 'y')
+    got = tx.storm_proxies(permuted, device='cpu')
+    want = port_pipeline_out['storm_proxies']
+    for k in want.data_vars:
+        np.testing.assert_array_equal(values(got[k]), values(want[k]).T)
+
+
+# --- the per-function surface ------------------------------------------------
+
+@pytest.fixture(scope='module')
+def das():
+    """DataArrays of the hard columns on a (y, x, level) grid, with
+    coordinates, and a height and wind field."""
+    ny, nx, levels = 4, 5, 14
+    p, t, td = chip_smoke.hard_columns(ny * nx, L=levels, seed=12)
+    rng = np.random.default_rng(13)
+    h = 44330.0 * (1.0 - (p / 1013.25) ** 0.19)
+    coords = {'y': np.arange(ny) * 1.0, 'x': np.arange(nx) * 1.0,
+              V: np.arange(1, levels + 1)}
+
+    def lv(a):
+        return txr.DataArray(a.reshape(ny, nx, levels), ('y', 'x', V),
+                             coords=coords)
+
+    def sf(a):
+        return txr.DataArray(a.reshape(ny, nx), ('y', 'x'),
+                             coords={k: coords[k] for k in ('y', 'x')})
+
+    d = {'p': lv(p), 't': lv(t), 'td': lv(td), 'h': lv(h),
+         'wu': lv(rng.normal(8, 5, p.shape)),
+         'wv': lv(rng.normal(2, 5, p.shape)),
+         'hs': lv(h - h[:, :1]), 'su': sf(rng.normal(3, 2, ny * nx)),
+         'sv': sf(rng.normal(0, 2, ny * nx)),
+         'p0': sf(p[:, 0]), 't0': sf(t[:, 0]), 'td0': sf(td[:, 0]),
+         'rh': lv(np.clip(rng.uniform(0.1, 1.0, p.shape), 0, 1)),
+         'q': lv(np.abs(rng.normal(5e-3, 2e-3, p.shape)) + 1e-5),
+         'w': lv(np.abs(rng.normal(5e-3, 2e-3, p.shape)))}
+    return d
+
+
+# name -> (argument keys, keyword arguments, takes tables)
+SURFACE = {
+    'lcl': (('p0', 't0', 'td0'), {}, False),
+    'parcel_profile': (('p', 'p0', 't0', 'td0'), {}, True),
+    'parcel_profile_with_lcl': (('p', 't', 'td', 'p0', 't0', 'td0'),
+                                {'lcl_interp': 'linear'}, True),
+    'cape_cin': (('p', 't', 'td', 't0', 'p0', 'td0'),
+                 {'pos_cape_neg_cin': False}, True),
+    'surface_based_cape_cin': (('p', 't', 'td'), {'prefix': 'sb'}, True),
+    'most_unstable_cape_cin': (('p', 't', 'td'), {'depth': 250.0}, True),
+    'mixed_layer_cape_cin': (('p', 't', 'td'), {'depth': 50.0,
+                                                'prefix': 'ml'}, True),
+    'deep_convective_index': (('p', 't', 'td', 't0'), {'prefix': 'mu'},
+                              False),
+    'wet_bulb_temperature': (('p', 't', 'td'), {}, True),
+    'wet_bulb_temperature_fast': (('t', 'td'), {}, False),
+    'lapse_rate': (('p', 't', 'h'), {'from_pressure': 850.0,
+                                     'to_pressure': 700.0}, False),
+    'isobar_temperature': (('p', 't'), {'isobar': 850.0}, False),
+    'freezing_level_height': (('t', 'h'), {}, False),
+    'melting_level_height': (('p', 't', 'td', 'h'), {}, True),
+    'wind_shear': (('su', 'sv', 'wu', 'wv', 'hs'), {}, False),
+    'dry_lapse': (('p', 't0', 'p0'), {}, False),
+    'moist_lapse': (('p', 't0', 'p0'), {}, True),
+    'mixing_ratio': (('t', 'td', 'p'), {}, False),
+    'dewpoint_from_specific_humidity': (('p', 't', 'q'), {}, False),
+    'dewpoint_from_relative_humidity': (('t', 'rh'), {}, False),
+    'virtual_temperature': (('t', 'w'), {'epsilon': 0.61}, False),
+    'mixed_parcel': (('p', 't', 'td'), {'depth': 60.0}, False),
+    'most_unstable_parcel': (('p', 't', 'td'), {}, False),
+    'find_intersections': (('p', 't', 'td'), {'log_x': True}, False),
+    'trapz': (('t', 'p'), {}, False),
+    'linear_interp': (('t', 'p', 'p0'), {}, False),
+    'log_interp': (('t', 'p', 'p0'), {'extrapolate': True}, False),
+    'bound_pressure': (('p', 'p0'), {}, False),
+    'trap_around_zeros': (('p', 't'), {'start': 2}, False),
+    'from_most_unstable_parcel': (('p', 't', 'td'), {}, False),
+    'mix_layer': (('p', 't', 'td'), {}, False),
+}
+
+
+@pytest.mark.parametrize('name', sorted(SURFACE))
+def test_per_function_surface_matches_jax(das, jax_tables, tables, name):
+    keys, kw, takes_tables = SURFACE[name]
+    args = [das[k] for k in keys]
+    if name == 'trap_around_zeros':        # a curve that crosses zero
+        args[1] = txr.DataArray(das['t'].values - das['td'].values - 3.0,
+                                das['t'].dims, coords=das['t'].coords)
+    jkw = dict(kw, tables=jax_tables) if takes_tables else kw
+    tkw = dict(kw, tables=tables) if takes_tables else kw
+    want = getattr(jx, name)(*args, **jkw)
+    got = getattr(tx, name)(*args, device='cpu', **tkw)
+    assert_xr_same(want, got, name=name)
+
+
+def test_dataset_taking_surface_matches_jax(das, jax_tables, tables):
+    """The wrappers that take a Dataset or dict of DataArrays."""
+    ds = txr.Dataset({'pressure': das['p'], 'temperature': das['t'],
+                      'dewpoint': das['td'], 'surface_wind_u': das['su']},
+                     coords=das['p'].coords)
+    for name, kw in (('get_layer', {'depth': 150.0}),
+                     ('get_layer', {'interpolate': False}),
+                     ('mixed_layer', {'depth': 80.0}),
+                     ('shift_out_nans', {}),
+                     ('get_layer', {'names': ['pressure', 'dewpoint']})):
+        assert_xr_same(getattr(jx, name)(ds, **kw),
+                       getattr(tx, name)(ds, device='cpu', **kw),
+                       name=f'{name}{kw}')
+    level = {'pressure': das['p0'], 'temperature': das['t0'],
+             'dewpoint': das['td0']}
+    assert_xr_same(jx.insert_level(ds, level), tx.insert_level(
+        ds, level, device='cpu'), name='insert_level')
+    prof = tx.parcel_profile(das['p'], das['p0'], das['t0'], das['td0'],
+                             tables=tables, device='cpu')
+    env = txr.Dataset({'pressure': das['p'], 'temperature': das['t'],
+                       'dewpoint': das['td']})
+    want = jx.add_lcl_to_profile(prof, environment=env)
+    got = tx.add_lcl_to_profile(prof, environment=env, device='cpu')
+    assert_xr_same(want, got, name='add_lcl_to_profile')
+    assert_xr_same(jx.lifted_index(want, prefix='sb', description='text'),
+                   tx.lifted_index(got, prefix='sb', description='text',
+                                   device='cpu'), name='lifted_index')
+    sol = tx.lfc_el(got['pressure'], got['temperature'],
+                    got['environment_temperature'],
+                    got['lcl_pressure'], got['lcl_temperature'],
+                    device='cpu')
+    jsol = jx.lfc_el(want['pressure'], want['temperature'],
+                     want['environment_temperature'],
+                     want['lcl_pressure'], want['lcl_temperature'])
+    assert_xr_same(jsol, sol, atol=1e-9, rtol=1e-9, name='lfc_el')
+    base = (got['pressure'], got['environment_temperature'],
+            sol['lfc_pressure'], sol['el_pressure'], got['temperature'])
+    assert_xr_same(jx.cape_cin_base(*base, post_zero_cin=True),
+                   tx.cape_cin_base(*base, post_zero_cin=True, device='cpu'),
+                   atol=1e-7, rtol=1e-9, name='cape_cin_base')
+    ship = [das[k] for k in ('p0', 'su', 't0', 'td0', 'sv', 'p0')]
+    assert_xr_same(jx.significant_hail_parameter(*ship),
+                   tx.significant_hail_parameter(*ship, device='cpu'),
+                   name='ship')
+    with pytest.raises(TypeError, match='DataArrays'):
+        tx.surface_based_cape_cin(ds, das['t'], das['td'], device='cpu')
+    with pytest.raises(ValueError, match='no data variable carries'):
+        tx.get_layer(ds, vert_dim='nothing', device='cpu')

@@ -1,6 +1,10 @@
 """PyTorch/CUDA port of xarray_parcel_tpu's convection diagnostics.
 
-Plain torch functions on tensors with the level axis last: the fused
+Users call it as the JAX package is called: ``xarray_api`` takes Datasets
+and DataArrays on the host, runs on the GPU and returns attributed Datasets
+(whole, or streamed in column chunks); ``api`` is the same surface on
+tensors under the reference's names.  Beneath them are
+plain torch functions on tensors with the level axis last: the fused
 pipelines (``conv_properties_fused``, ``min_conv_properties_fused``) and
 the modular ones (``conv_properties``, ``min_conv_properties``), the storm
 proxies and SHIP, the fused CAPE/CIN solve, and the modular path under the
@@ -10,13 +14,18 @@ the fused paths' per-column CAPE/CIN solve and diagnostics tail run in
 hand-written CUDA kernels (``csrc/fused_cape.cu``, ``csrc/diag_tail.cu``,
 built at first use by ``_build.py``), on the CPU in their plain torch
 twins; every output is differentiable, the kernels' gradient being their
-twins' VJP.  The modular path is plain torch on either device.  Imports
-torch and numpy only.
+twins' VJP.  The modular path is plain torch on either device.
+``adiabat`` builds its own moist-adiabat tables; ``parallel`` chunks and
+streams column batches on one device.  Imports torch and numpy (and xarray
+if it is installed, else its own ``xr_lite``).
 """
 
 from . import adiabat, cape, constants, diagnostics, fused, lcl, ops
 from . import parcels, pipeline, profile, thermo
-from .adiabat import AdiabatTables, moist_lapse, moist_lapse_integrate
+from . import fieldset, native, parallel, utils, xr_lite
+from . import api, xarray_api
+from .adiabat import (AdiabatTables, load_moist_adiabat_lookups, moist_lapse,
+                      moist_lapse_integrate)
 from .cape import cape_cin, surface_based_cape_cin
 from .diagnostics import wet_bulb_temperature
 from .fused import fused_cape_cin, fused_surface_cape_cin
@@ -29,6 +38,8 @@ from .profile import (add_lcl_to_profile, parcel_profile,
 
 __all__ = ['adiabat', 'cape', 'constants', 'diagnostics', 'fused', 'lcl',
            'ops', 'parcels', 'pipeline', 'profile', 'thermo',
+           'fieldset', 'native', 'parallel', 'utils', 'xr_lite', 'api',
+           'xarray_api', 'load_moist_adiabat_lookups',
            'AdiabatTables', 'moist_lapse', 'moist_lapse_integrate',
            'cape_cin', 'surface_based_cape_cin', 'wet_bulb_temperature',
            'fused_cape_cin', 'fused_surface_cape_cin',

@@ -1,23 +1,28 @@
-"""Moist (pseudo)adiabat engine: RK4 integrator, spectral coefficients and
+"""Moist (pseudo)adiabat engine: RK4 integrator, the table construction and
 the table consumer ``moist_lapse``.
 
-Port of ``xarray_parcel_tpu.adiabat`` without its table builders.  The
-curve family is 14,300 pseudoadiabats whose start temperatures at 1100 hPa
-lie on a 0.01 K grid.  Each curve is stored as piecewise Chebyshev
-coefficients of T(ln p): three segments split at 50 and 230 hPa, 14 terms
+Port of ``xarray_parcel_tpu.adiabat``.  The curve family is 14,300
+pseudoadiabats whose start temperatures at 1100 hPa lie on a 0.01 K grid.
+Each curve is stored as piecewise Chebyshev coefficients of T(ln p): three segments split at 50 and 230 hPa, 14 terms
 each.  A parcel's fractional curve index comes from integrating the ODE
 backward to 1100 hPa; the two bracketing coefficient rows are blended into
 one row per column, which the CAPE/CIN kernel (and ``moist_lapse``'s
 default mode) evaluates at every level.
 
-``build_spectral`` makes the coefficients here, on any device, so the
-default path needs no table cache from the JAX package.  ``moist_lapse``'s
-table modes read the JAX package's curve and lookup tables, carried across
-by ``AdiabatTables.from_numpy``; ``moist_lapse_integrate`` is the exact-ODE
-oracle.
+``build_spectral`` makes the coefficients, ``generate_curves`` every
+curve's temperature on the 0.5 hPa grid and ``build_lookup`` the
+(pressure, temperature) -> curve index table, on any device, in float64.
+``load_moist_adiabat_lookups`` builds all three once, caches them in the
+port's own file under ``adiabat_lookups/`` and makes them the default
+tables; without it ``default_tables`` builds the coefficients alone, which
+is all the default path reads.  ``AdiabatTables.save``/``load`` use the
+JAX package's ``.npz`` layout (``curves``, ``lookup``, ``coeffs``), so a
+table file written by either package loads into the other.
+``moist_lapse_integrate`` is the exact-ODE oracle.
 """
 
-import functools
+import os
+import zipfile
 
 import numpy as np
 import torch
@@ -38,6 +43,10 @@ N_TEMP = int(round((T_MAX_EXCL - T_MIN) / T_STEP))    # 7150
 N_CURVES = 2 * N_TEMP                                  # 14300 (offsets 0, 0.01)
 CURVE_OFFSET = T_STEP / 2.0
 
+# RK4 refinement of generate_curves: the largest log-pressure step.
+# ln(1100/2.5) is about 6.09 in all.
+MAX_DLOGP = 2e-3
+
 # Piecewise Chebyshev representation.
 N_SEG = 3
 SEG_K = 14
@@ -56,6 +65,37 @@ def curve_start_temperatures(device, dtype=torch.float64):
     base = np.round(np.arange(T_MIN, T_MAX_EXCL, T_STEP), 2)
     starts = np.stack([base, base + CURVE_OFFSET], axis=1).reshape(-1)
     return torch.as_tensor(starts, dtype=dtype, device=device)
+
+
+def round_to(x, to, dp=2):
+    """Round ``x`` to the nearest multiple of ``to``, then to ``dp`` decimal
+    places: the reference's table-grid snapping helper."""
+    x = torch.as_tensor(x)
+    if not x.is_floating_point():
+        x = x.to(torch.get_default_dtype())
+    return torch.round(torch.round(x / to) * to, decimals=dp)
+
+
+def pressure_grid(device=None, dtype=torch.float64):
+    """The descending uniform pressure grid [1100, 1099.5, …, 2.5] hPa."""
+    return torch.as_tensor(np.round(np.arange(1100.0, 2.0, -0.5), 1),
+                           dtype=dtype, device=device)
+
+
+def _refined_grid():
+    """The integration grid of generate_curves: the output pressure grid with
+    each interval subdivided so that every RK4 step has |dlog p| <=
+    MAX_DLOGP.  Returns (log-pressures in integration order, descending p;
+    indices of the output pressures within them), as numpy arrays."""
+    logp = np.log(np.round(np.arange(1100.0, 2.0, -0.5), 1))
+    pts = [logp[0]]
+    out_idx = [0]
+    for k in range(len(logp) - 1):
+        a, b = logp[k], logp[k + 1]
+        n_sub = max(1, int(np.ceil(abs(b - a) / MAX_DLOGP)))
+        pts.extend(np.linspace(a, b, n_sub + 1)[1:].tolist())
+        out_idx.append(len(pts) - 1)
+    return np.asarray(pts), np.asarray(out_idx)
 
 
 def rk4_step(logp, dlogp, t):
@@ -79,6 +119,61 @@ def integrate_between(t0, logp0, logp1, n_substeps=16):
     for i in range(n_substeps):
         t = rk4_step(logp0 + i * h, h, t)
     return t
+
+
+def generate_curves(device, dtype=torch.float64, starts=None):
+    """The adiabat family on the 0.5 hPa grid: one RK4 walk down the
+    refined log-pressure grid for all curves at once, keeping the output
+    pressures.
+
+    Returns (N_CURVES, N_PRES), the temperature of every curve at every
+    grid pressure; with ``starts`` (a 1-D tensor of start temperatures at
+    1100 hPa) only those curves.
+    """
+    grid, out_idx = _refined_grid()
+    t = (curve_start_temperatures(device, dtype) if starts is None
+         else starts.to(device=device, dtype=dtype))
+    curves = torch.empty((len(out_idx), t.shape[0]), dtype=dtype,
+                         device=device)
+    curves[0] = t
+    keep = {int(i): k for k, i in enumerate(out_idx)}
+    lp = torch.as_tensor(grid, dtype=dtype, device=device)
+    steps = lp[1:] - lp[:-1]
+    for i, h in enumerate(steps):
+        t = rk4_step(lp[i], h, t)
+        if i + 1 in keep:
+            curves[keep[i + 1]] = t
+    return curves.T.contiguous()
+
+
+def build_lookup(curves, rows=256):
+    """The (pressure, temperature) -> fractional curve index table.
+
+    At each grid pressure the curve temperatures ``curves[:, ip]`` increase
+    strictly with the curve index (pseudoadiabats do not cross), so the
+    curve through a (p, T) cell has a fractional index by inverse
+    interpolation.  Cells further than half a temperature step outside the
+    family are NaN.  Works through the pressures ``rows`` at a time.
+
+    Returns float32 (N_PRES, N_TEMP).
+    """
+    tq = T_MIN + T_STEP * torch.arange(N_TEMP, dtype=curves.dtype,
+                                       device=curves.device)
+    n = curves.shape[0]
+    out = torch.empty((curves.shape[1], N_TEMP), dtype=torch.float32,
+                      device=curves.device)
+    for r0 in range(0, curves.shape[1], rows):
+        col = curves[:, r0:r0 + rows].T.contiguous()    # (rows, N_CURVES)
+        q = tq.expand(col.shape[0], -1).contiguous()
+        hi = torch.searchsorted(col, q, side='left').clamp(1, n - 1)
+        lo = hi - 1
+        c_lo, c_hi = col.gather(-1, lo), col.gather(-1, hi)
+        fidx = lo + ((q - c_lo) / (c_hi - c_lo)).clamp(0.0, 1.0)
+        valid = ((q >= col[:, :1] - T_STEP / 2.0) &
+                 (q <= col[:, -1:] + T_STEP / 2.0))
+        out[r0:r0 + rows] = torch.where(valid, fidx, torch.nan).to(
+            torch.float32)
+    return out
 
 
 def _cheb_nodes(n_coef, lo=_LNP_LO, hi=_LNP_HI):
@@ -172,6 +267,28 @@ def _eval_spectral(coeffs, pressure, log_pressure=None):
     return seg_coef(0) + u * b1 - b2
 
 
+def _save_npz(path, curves, lookup, coeffs):
+    """Atomic compressed save of host arrays in the JAX package's layout:
+    an interrupted write never leaves a corrupt file, and concurrent savers
+    do not share a temporary name."""
+    tmp = f'{path}.{os.getpid()}.tmp'
+    arrays = {'coeffs': coeffs}
+    if curves is not None:
+        arrays['curves'] = curves
+    if lookup is not None:
+        arrays['lookup'] = lookup
+    try:
+        with open(tmp, 'wb') as f:   # a handle: savez would append .npz
+            np.savez_compressed(f, **arrays)
+        os.replace(tmp, path)
+    except BaseException:
+        try:
+            os.unlink(tmp)
+        except OSError:
+            pass
+        raise
+
+
 class AdiabatTables(nn.Module):
     """The moist-adiabat tables as module buffers; ``.to(device)`` moves
     them.
@@ -201,22 +318,143 @@ class AdiabatTables(nn.Module):
         """Tables from host arrays, e.g. the JAX package's
         ``np.asarray(tables.coeffs)`` (and ``tables.curves``,
         ``tables.lookup``).  ``coeffs`` and ``curves`` take ``dtype``;
-        ``lookup`` keeps its own (float32 in the JAX package)."""
+        ``lookup`` keeps its own (float32 in both packages).  ``coeffs``
+        may be None when ``curves`` come with a file that has none: they
+        are then built on ``device``."""
         def put(x, dt=None):
             return None if x is None else torch.tensor(
                 np.asarray(x), dtype=dt, device=device)
+        if coeffs is None:
+            coeffs = build_spectral(device).to(dtype)
         return cls(put(coeffs, dtype), put(curves, dtype), put(lookup))
 
     @classmethod
-    def build(cls, device, dtype):
-        """Build the coefficients on ``device`` in float64, then cast."""
-        return cls(build_spectral(device).to(dtype))
+    def build(cls, device, dtype, with_tables=False):
+        """Build on ``device`` in float64, then cast: the coefficients,
+        and with ``with_tables`` the curves and the lookup table too."""
+        coeffs = build_spectral(device).to(dtype)
+        if not with_tables:
+            return cls(coeffs)
+        curves = generate_curves(device)
+        return cls(coeffs, curves.to(dtype), build_lookup(curves))
+
+    def astype(self, dtype):
+        """The tables with ``coeffs`` and ``curves`` as ``dtype`` (the
+        lookup table keeps float32)."""
+        return AdiabatTables(
+            self.coeffs.to(dtype),
+            None if self.curves is None else self.curves.to(dtype),
+            self.lookup)
+
+    def save(self, path):
+        """Write the tables as a compressed ``.npz`` with the keys
+        ``coeffs``, ``curves`` and ``lookup`` (those there are)."""
+        def host(x):
+            return None if x is None else x.detach().cpu().numpy()
+        _save_npz(path, host(self.curves), host(self.lookup),
+                  host(self.coeffs))
+
+    @classmethod
+    def load(cls, path, device, dtype=None):
+        """Read tables saved by :meth:`save` (or by the JAX package's
+        ``AdiabatTables.save``) onto ``device``; ``dtype`` defaults to the
+        stored curves' (else coefficients').  Coefficients that are missing
+        or not in the piecewise layout are rebuilt."""
+        with np.load(path) as f:
+            arrays = {k: np.asarray(f[k]) for k in f.files}
+        coeffs = arrays.get('coeffs')
+        if coeffs is not None and coeffs.shape[-1] != N_COEF:
+            coeffs = None
+        stored = arrays['curves'] if 'curves' in arrays else coeffs
+        if dtype is None:
+            dtype = (torch.float64 if stored is None
+                     or stored.dtype.itemsize == 8 else torch.float32)
+        return cls.from_numpy(coeffs, device, dtype,
+                              curves=arrays.get('curves'),
+                              lookup=arrays.get('lookup'))
 
 
-@functools.lru_cache(maxsize=8)
+# The default tables: what load_moist_adiabat_lookups loaded, else the
+# coefficients alone, built at first use per (device, dtype).
+_LOADED = None
+_LOADED_SOURCE = None
+_DEFAULTS = {}
+_CACHE_DIR = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), 'adiabat_lookups')
+
+
+def _stored_dtype(path):
+    """Dtype of a table file's curves from the ``.npy`` header alone,
+    without decompressing the array.  None when the file is unreadable or
+    holds no curves."""
+    from numpy.lib import format as npformat
+    try:
+        with zipfile.ZipFile(path) as z, z.open('curves.npy') as f:
+            version = npformat.read_magic(f)
+            if version == (1, 0):
+                _, _, dtype = npformat.read_array_header_1_0(f)
+            else:
+                _, _, dtype = npformat.read_array_header_2_0(f)
+            return dtype
+    except (KeyError, OSError, ValueError, zipfile.BadZipFile):
+        return None
+
+
+def load_moist_adiabat_lookups(cache_path=None, regenerate=False, dtype=None,
+                               device=None):
+    """Load, or build and cache, the default tables (coefficients, curves
+    and lookup table), and return them.
+
+    The cache is the port's own file, keyed by dtype:
+    ``adiabat_lookups/torch_adiabat_tables_f32.npz`` or ``_f64.npz`` beside
+    the package, or ``cache_path``, or ``$XPARCEL_TORCH_TABLE_CACHE``.  A
+    file whose stored precision covers the request is loaded and cast; a
+    narrower or unreadable one is rebuilt, as is any with ``regenerate``.
+    The build runs on ``device`` (None: the GPU) in float64.  ``dtype``
+    defaults to torch's default dtype.
+    """
+    global _LOADED, _LOADED_SOURCE
+    from ._device import resolve_device
+    device = resolve_device(device)
+    dtype = dtype or torch.get_default_dtype()
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f'tables are float32 or float64, not {dtype}')
+    wide = dtype == torch.float64
+    path = (cache_path or os.environ.get('XPARCEL_TORCH_TABLE_CACHE')
+            or os.path.join(
+                _CACHE_DIR,
+                f'torch_adiabat_tables_{"f64" if wide else "f32"}.npz'))
+    if (not regenerate and _LOADED is not None and _LOADED_SOURCE == path
+            and _LOADED.coeffs.dtype == dtype
+            and _LOADED.coeffs.device == device):
+        return _LOADED
+    stored = None if regenerate else _stored_dtype(path)
+    if stored is not None and stored.itemsize >= (8 if wide else 4):
+        tables = AdiabatTables.load(path, device, dtype)
+    else:
+        tables = AdiabatTables.build(device, dtype, with_tables=True)
+        if os.path.dirname(path):
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+        tables.save(path)
+    _LOADED, _LOADED_SOURCE = tables, path
+    _DEFAULTS.clear()
+    return tables
+
+
 def default_tables(device, dtype):
-    """Tables built once per (device, dtype) for callers that pass none."""
-    return AdiabatTables.build(device, dtype)
+    """The tables for callers that pass none: those that
+    :func:`load_moist_adiabat_lookups` loaded, moved to ``device`` and
+    ``dtype``; before any load, the coefficients alone, built there.
+    Cached per (device, dtype)."""
+    key = (torch.device(device), dtype)
+    if key not in _DEFAULTS:
+        if _LOADED is None:
+            _DEFAULTS[key] = AdiabatTables.build(*key)
+        elif (_LOADED.coeffs.device, _LOADED.coeffs.dtype) == key:
+            _DEFAULTS[key] = _LOADED
+        else:
+            _DEFAULTS[key] = _LOADED.astype(dtype).to(key[0])
+    return _DEFAULTS[key]
 
 
 def curve_index_integrate(parcel_pressure, parcel_temperature,
@@ -255,8 +493,8 @@ def _table(tables, name, mode):
     x = getattr(tables, name)
     if x is None:
         raise ValueError(f'moist_lapse {mode} needs tables.{name}, and these '
-                         f'tables have none: pass {name}= to '
-                         f'AdiabatTables.from_numpy')
+                         f'tables have none: call load_moist_adiabat_lookups() '
+                         f'or AdiabatTables.build(..., with_tables=True)')
     return x
 
 

@@ -147,6 +147,8 @@ __device__ __forceinline__ void warp_tie(T& x, T& y) {
 // (ops/interp.py interp_many with log=True): the closest log-pressure at
 // or above and at or below the target, with the sums and counts of each
 // variable's non-NaN values there, so that duplicate levels average.
+// With `linear` the coordinate is the pressure itself (log=False): the
+// caller gives bound() pressures and a pressure target.
 // Found across a warp in four steps, which keep few registers live while
 // the lanes walk their levels:
 //   bound()   each lane, over its levels: its closest log-pressures and the
@@ -160,7 +162,8 @@ __device__ __forceinline__ void warp_tie(T& x, T& y) {
 // Only the order of the sums over duplicates in different lanes can differ
 // from the serial fold over the levels.
 template <typename T> struct Anchors {
-  T at;                  // the target, already in log space (NaN: none)
+  T at;                  // the target, in coordinate space (NaN: none)
+  bool linear;           // coordinates are pressures, not log-pressures
   T cb, ca;              // closest log-pressure >= at, and <= at
   T sb[2], sa[2];        // sums of each variable's non-NaN values there
   int nb[2], na[2];
@@ -168,7 +171,8 @@ template <typename T> struct Anchors {
   bool db, da;           // ... and whether it has another there
   bool hb, ha;           // this lane holds the column's cb, ca
 
-  __device__ explicit Anchors(T log_target) : at(log_target) {
+  __device__ explicit Anchors(T target, bool linear = false)
+      : at(target), linear(linear) {
     cb = Num<T>::inf();
     ca = -Num<T>::inf();
     ib = ia = 0;
@@ -179,7 +183,7 @@ template <typename T> struct Anchors {
     }
   }
 
-  // Level i, of log-pressure lp (NaN never anchors).
+  // Level i, of coordinate lp (NaN never anchors).
   __device__ void bound(T lp, int i) {
     if (lp >= at) {
       if (lp < cb) {
@@ -216,7 +220,7 @@ template <typename T> struct Anchors {
     if (ha && !da) add(sa, na, x0[ia], x1[ia]);
     if ((hb && db) || (ha && da))
       for (int i = lane_id(); i < L; i += kWarp) {
-        const T lp = dlog(p[i]);
+        const T lp = linear ? p[i] : dlog(p[i]);
         if (hb && db && lp == cb) add(sb, nb, x0[i], x1[i]);
         if (ha && da && lp == ca) add(sa, na, x0[i], x1[i]);
       }

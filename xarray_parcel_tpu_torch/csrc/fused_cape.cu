@@ -59,6 +59,21 @@
 // comparing values that the plain twin computes op by op with IEEE
 // exp/log/divide, so no multiply-add may be fused into one rounding.
 //
+// The solve's four options (fused.solve_options) come as a flags word, one
+// bit per non-default setting, uniform over the grid.  The default
+// instances (kDefaults) take it as the constant 0, so the compiler removes
+// every option's code from them; one further instance per type and profile
+// flag reads the word at run time:
+//   * kRealTemperature  the crossing set, LFC/EL and the areas run on the
+//                       real parcel and environment temperature tracks, the
+//                       LCL slot on lcl_t and the environment temperature
+//                       there (the slots' PT/ET take the values of TP/TE);
+//   * kLinearLcl        the environment at the LCL is interpolated in
+//                       pressure, not log-pressure (pass A's anchors);
+//   * kSignedAreas      every area of the window counts toward CAPE and
+//                       CIN with its sign (pass C);
+//   * kZeroCin          a CIN that is not <= 0 becomes 0.
+//
 // Output rows, each (B,): cape, cin, lfc_p, lfc_t, el_p, el_t, lifted index.
 // With a non-null profile pointer, pass B also stores the spliced column's
 // pressure, parcel temperature and environment temperature tracks,
@@ -93,6 +108,12 @@ constexpr double kSegShift1 = 6.126970736883871;
 constexpr double kSegShift2 = 7.949683624226738;
 
 constexpr int kScalars = 6;   // lcl_p, lcl_t, lcl_vt, w0, t0, p0
+
+// Bits of the flags word (fused.py FLAG_*).
+constexpr int kRealTemperature = 1;
+constexpr int kLinearLcl = 2;
+constexpr int kSignedAreas = 4;
+constexpr int kZeroCin = 8;
 
 // --- thermodynamics (same evaluation order as thermo.py) -----------------
 
@@ -179,6 +200,7 @@ template <typename T> struct Column {
   const T* row;   // the coefficient row, staged in shared memory
   int seg_k, k0, idx;
   bool flood;   // NaN LCL pressure: every slot takes the LCL's values
+  bool real;    // kRealTemperature: PT/ET are the real temperatures
   T lcl_p, lcl_t, lcl_vt, w0, t0, log_p0, llcl;
   T t_at, envvt_at;   // environment at the LCL
 
@@ -212,9 +234,16 @@ template <typename T> struct Column {
   }
 
   __device__ Slot<T> slot(int j) const {
-    if (flood || j == idx)
+    if (flood || j == idx) {
+      if (real) return Slot<T>{lcl_p, llcl, lcl_t, t_at, lcl_t, t_at};
       return Slot<T>{lcl_p, llcl, lcl_vt, envvt_at, lcl_t, t_at};
-    return level(j < idx ? j : j - 1);
+    }
+    Slot<T> s = level(j < idx ? j : j - 1);
+    if (real) {
+      s.PT = s.TP;
+      s.ET = s.TE;
+    }
+    return s;
   }
 };
 
@@ -252,14 +281,17 @@ __device__ __forceinline__ void tie_max(T y, T& best_y, bool reset) {
   else if (y > best_y) best_y = y;
 }
 
-template <typename T, bool kProfile>
+template <typename T, bool kProfile, bool kDefaults>
 __global__ void __launch_bounds__(kWarps * kWarp)
 fused_cape_cin_kernel(const T* __restrict__ p, const T* __restrict__ t,
                       const T* __restrict__ td, const T* __restrict__ row,
                       const T* __restrict__ sc, const int* __restrict__ k0s,
                       T* __restrict__ out, T* __restrict__ prof, int64_t B,
-                      int L, int K, int cap) {
+                      int L, int K, int cap, int flags) {
   extern __shared__ double smem[];   // double: aligned for either type
+  const int opts = kDefaults ? 0 : flags;
+  const bool linear_lcl = opts & kLinearLcl;
+  const bool signed_areas = opts & kSignedAreas;
   const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
   const int64_t col = (int64_t)blockIdx.x * (blockDim.x / kWarp) + warp;
   if (col >= B) return;   // the whole warp: no lane is left to reduce with
@@ -285,20 +317,22 @@ fused_cape_cin_kernel(const T* __restrict__ p, const T* __restrict__ t,
   c.t0 = s[4];
   c.log_p0 = dlog(s[5]);
   c.flood = isnan_(c.lcl_p);
+  c.real = opts & kRealTemperature;
   c.llcl = c.flood ? nan : dlog(c.lcl_p);
   const T llcl = c.llcl;
   const T l500 = dlog(T(500));
 
   // --- pass A: source levels ---------------------------------------------
   int idx = 0;
-  Anchors<T> lcl(llcl);               // t and td at the LCL
+  // t and td at the LCL, in log-pressure or (kLinearLcl) in pressure
+  Anchors<T> lcl(linear_lcl ? c.lcl_p : llcl, linear_lcl);
   T cb5 = inf, ca5 = -inf;            // 500 hPa anchors of the splice
   T lpmin = inf;
   for (int i = lane; i < L; i += kWarp) {
     const T pi = c.p[i];
     if (pi >= c.lcl_p) idx = i + 1;   // the lane's last level with p >= lcl_p
     const T lp = dlog(pi);
-    lcl.bound(lp, i);
+    lcl.bound(linear_lcl ? pi : lp, i);
     if (lp < lpmin) lpmin = lp;
     if (lp >= l500 && lp < cb5) cb5 = lp;
     if (lp <= l500 && lp > ca5) ca5 = lp;
@@ -463,10 +497,11 @@ fused_cape_cin_kernel(const T* __restrict__ p, const T* __restrict__ t,
         // Whole-gap trapezoid, both endpoints in the window.
         if (!isnan_(d0) && !isnan_(d1) && !isnan_(x0) && !isnan_(x1)) {
           const T area = dabs(x1 - x0) * (T(0.5) * (d0 + d1));
-          if (area > T(0) && x0 <= lfc_lp && x0 >= el_lp && x1 <= lfc_lp &&
-              x1 >= el_lp)
+          if ((signed_areas || area > T(0)) && x0 <= lfc_lp && x0 >= el_lp &&
+              x1 <= lfc_lp && x1 >= el_lp)
             cape_t += area;
-          if (area < T(0) && x0 >= lfc_lp && x1 >= lfc_lp) cin_t += area;
+          if ((signed_areas || area < T(0)) && x0 >= lfc_lp && x1 >= lfc_lp)
+            cin_t += area;
         }
       } else {
         // Rectangles from each endpoint to the crossing, height y/2.
@@ -477,8 +512,9 @@ fused_cape_cin_kernel(const T* __restrict__ p, const T* __restrict__ t,
           const T dx = px[r] - ix;
           const T area = (py[r] * T(0.5)) * dabs(dx);
           const T pos = px[r] - dx * T(0.5);
-          if (area > T(0) && pos <= lfc_lp && pos >= el_lp) cape_r += area;
-          if (area < T(0) && pos >= lfc_lp) cin_r += area;
+          if ((signed_areas || area > T(0)) && pos <= lfc_lp && pos >= el_lp)
+            cape_r += area;
+          if ((signed_areas || area < T(0)) && pos >= lfc_lp) cin_r += area;
         }
       }
     }
@@ -496,18 +532,21 @@ fused_cape_cin_kernel(const T* __restrict__ p, const T* __restrict__ t,
 
   T* o = out + col;
   o[0 * B] = T(kRd) * cape_t + T(kRd) * cape_r;
-  o[1 * B] = T(kRd) * cin_t + T(kRd) * cin_r;
+  T cin = T(kRd) * cin_t + T(kRd) * cin_r;
+  if ((opts & kZeroCin) && !(cin <= T(0))) cin = T(0);
+  o[1 * B] = cin;
   o[2 * B] = replace ? c.lcl_p : (isnan_(lfc) ? nan : dexp(lfc));
-  o[3 * B] = replace ? c.lcl_vt : lfc_t;
+  o[3 * B] = replace ? (c.real ? c.lcl_t : c.lcl_vt) : lfc_t;
   o[4 * B] = isnan_(el) ? nan : dexp(el);
   o[5 * B] = el_t;
   o[6 * B] = env500 - par500;
 }
 
-template <typename T, bool kProfile>
+template <typename T, bool kProfile, bool kDefaults>
 int launch_solve(const void* p, const void* t, const void* td,
                  const void* row, const void* sc, const void* k0, void* out,
-                 void* prof, int64_t B, int L, int K, cudaStream_t stream) {
+                 void* prof, int64_t B, int L, int K, int flags,
+                 cudaStream_t stream) {
   int dev, smem_max;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -527,7 +566,7 @@ int launch_solve(const void* p, const void* t, const void* td,
     cap = (smem_max / (int64_t)sizeof(T) - K) / Tracks<T>::kArrays;
   if (cap < 1) return (int)cudaErrorInvalidValue;
   const int64_t bytes = warps * per_warp(cap);
-  auto kernel = fused_cape_cin_kernel<T, kProfile>;
+  auto kernel = fused_cape_cin_kernel<T, kProfile, kDefaults>;
   if (bytes > 48 * 1024) {
     err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -537,19 +576,29 @@ int launch_solve(const void* p, const void* t, const void* td,
   const int64_t blocks = (B + warps - 1) / warps;
   kernel<<<(unsigned)blocks, warps * kWarp, (size_t)bytes, stream>>>(
       (const T*)p, (const T*)t, (const T*)td, (const T*)row, (const T*)sc,
-      (const int*)k0, (T*)out, (T*)prof, B, L, K, (int)cap);
+      (const int*)k0, (T*)out, (T*)prof, B, L, K, (int)cap, flags);
   return (int)cudaGetLastError();
 }
 
+// The instance for the profile pointer and the flags word: the default
+// options (flags == 0) take the instances compiled without them.
 template <typename T>
 int launch(const void* p, const void* t, const void* td, const void* row,
            const void* sc, const void* k0, void* out, void* prof, int64_t B,
-           int L, int K, void* stream) {
+           int L, int K, int flags, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  if (flags == 0) {
+    if (prof)
+      return launch_solve<T, true, true>(p, t, td, row, sc, k0, out, prof, B,
+                                         L, K, 0, s);
+    return launch_solve<T, false, true>(p, t, td, row, sc, k0, out, nullptr,
+                                        B, L, K, 0, s);
+  }
   if (prof)
-    return launch_solve<T, true>(p, t, td, row, sc, k0, out, prof, B, L, K, s);
-  return launch_solve<T, false>(p, t, td, row, sc, k0, out, nullptr, B, L, K,
-                                s);
+    return launch_solve<T, true, false>(p, t, td, row, sc, k0, out, prof, B,
+                                        L, K, flags, s);
+  return launch_solve<T, false, false>(p, t, td, row, sc, k0, out, nullptr, B,
+                                       L, K, flags, s);
 }
 
 }  // namespace
@@ -557,19 +606,36 @@ int launch(const void* p, const void* t, const void* td, const void* row,
 extern "C" {
 
 // Launch on `stream`; returns cudaGetLastError() (0 on success).  `prof`
-// may be null: then no profile tracks are stored.
+// may be null: then no profile tracks are stored.  The first pair runs the
+// default options; the `_flags_` pair takes the flags word after K.
 int fused_cape_cin_f32(const void* p, const void* t, const void* td,
                        const void* row, const void* sc, const void* k0,
                        void* out, void* prof, int64_t B, int L, int K,
                        void* stream) {
-  return launch<float>(p, t, td, row, sc, k0, out, prof, B, L, K, stream);
+  return launch<float>(p, t, td, row, sc, k0, out, prof, B, L, K, 0, stream);
 }
 
 int fused_cape_cin_f64(const void* p, const void* t, const void* td,
                        const void* row, const void* sc, const void* k0,
                        void* out, void* prof, int64_t B, int L, int K,
                        void* stream) {
-  return launch<double>(p, t, td, row, sc, k0, out, prof, B, L, K, stream);
+  return launch<double>(p, t, td, row, sc, k0, out, prof, B, L, K, 0, stream);
+}
+
+int fused_cape_cin_flags_f32(const void* p, const void* t, const void* td,
+                             const void* row, const void* sc, const void* k0,
+                             void* out, void* prof, int64_t B, int L, int K,
+                             int flags, void* stream) {
+  return launch<float>(p, t, td, row, sc, k0, out, prof, B, L, K, flags,
+                       stream);
+}
+
+int fused_cape_cin_flags_f64(const void* p, const void* t, const void* td,
+                             const void* row, const void* sc, const void* k0,
+                             void* out, void* prof, int64_t B, int L, int K,
+                             int flags, void* stream) {
+  return launch<double>(p, t, td, row, sc, k0, out, prof, B, L, K, flags,
+                        stream);
 }
 
 }  // extern "C"

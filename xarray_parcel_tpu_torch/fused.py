@@ -9,12 +9,17 @@ and the 500 hPa lifted index; optionally the spliced column's pressure,
 parcel and environment temperature tracks (the profile).
 
 On a CUDA tensor the solve runs in the hand-written kernel
-``csrc/fused_cape.cu`` (one thread per column); on a CPU tensor it runs in
-``_column_program``, the same solve as vectorised torch on (B, L) tensors.
+``csrc/fused_cape.cu`` (one warp per column, its lanes striding over the
+levels); on a CPU tensor it runs in ``_column_program``, the same solve as
+vectorised torch on (B, L) tensors.
 The O(B) pre-pass (LCL fixed point, curve index, coefficient-row blend,
 first-valid level) is plain torch on either device, so gradients reach the
 parcel state through it.  The kernel's gradient is the twin's VJP
 (:class:`CapeCinSolve`).
+
+The solve takes four options with the JAX package's meaning
+(:func:`solve_options`); the kernel's default instance compiles them away
+and a second instance reads them from a flags word.
 """
 
 import math
@@ -39,14 +44,55 @@ PROFILE = ('pressure', 'temperature', 'environment_temperature')
 #: Order of the per-column scalar inputs.
 SCALARS = ('lcl_pressure', 'lcl_temperature', 'lcl_virtual_temperature',
            'mixing_ratio', 'temperature', 'pressure')
+#: Bits of the kernel's flags word, one per non-default option.
+FLAG_REAL_TEMPERATURE = 1       # virtual_temperature_correction=False
+FLAG_LINEAR_LCL = 2             # lcl_interp='linear'
+FLAG_SIGNED_AREAS = 4           # pos_cape_neg_cin=False
+FLAG_ZERO_CIN = 8               # post_zero_cin=True
+
+
+def solve_options(virtual_temperature_correction=True, lcl_interp='log',
+                  pos_cape_neg_cin=True, post_zero_cin=False):
+    """The solve's options as a dict with every default filled in.
+
+    ``virtual_temperature_correction``: search LFC/EL and integrate on the
+    virtual-temperature tracks (else on the real ones, with the LCL
+    temperature for the LCL's).  ``lcl_interp``: ``'log'`` or ``'linear'``,
+    how the environment is interpolated at the LCL pressure.
+    ``pos_cape_neg_cin``: only positive areas count toward CAPE and only
+    negative toward CIN (else every area of the window, with its sign).
+    ``post_zero_cin``: clamp a positive (or NaN) CIN to zero.  An unknown
+    keyword raises ``TypeError``."""
+    if lcl_interp not in ('log', 'linear'):
+        raise ValueError(f"lcl_interp must be 'log' or 'linear', "
+                         f'not {lcl_interp!r}')
+    return {'virtual_temperature_correction':
+            bool(virtual_temperature_correction),
+            'lcl_interp': lcl_interp,
+            'pos_cape_neg_cin': bool(pos_cape_neg_cin),
+            'post_zero_cin': bool(post_zero_cin)}
+
+
+def option_flags(options):
+    """The kernel's flags word for a :func:`solve_options` dict (0 for the
+    defaults)."""
+    o = solve_options(**options)
+    return ((0 if o['virtual_temperature_correction']
+             else FLAG_REAL_TEMPERATURE)
+            | (FLAG_LINEAR_LCL if o['lcl_interp'] == 'linear' else 0)
+            | (0 if o['pos_cape_neg_cin'] else FLAG_SIGNED_AREAS)
+            | (FLAG_ZERO_CIN if o['post_zero_cin'] else 0))
 
 
 def _column_program(p, t, td, row, lcl_p, lcl_t, lcl_vt, w0, t0, p0, k0,
-                    with_profile=False):
+                    with_profile=False, virtual_temperature_correction=True,
+                    lcl_interp='log', pos_cape_neg_cin=True,
+                    post_zero_cin=False):
     """The per-column CAPE/CIN solve on (B, L) tensors (the kernel's plain
     twin).  ``row``: (B, K) blended coefficient rows (NaN row = parcel
     outside the adiabat family); the rest are (B,) per-column scalars,
-    ``k0`` the integer first-valid level.  Returns a dict of (B,) outputs
+    ``k0`` the integer first-valid level; the options as in
+    :func:`solve_options`.  Returns a dict of (B,) outputs
     named as in :data:`OUTPUTS`; with ``with_profile`` also ``profile``,
     the (B, L+1) spliced tracks in :data:`PROFILE` order."""
     lcl_pb = lcl_p[..., None]
@@ -81,25 +127,35 @@ def _column_program(p, t, td, row, lcl_p, lcl_t, lcl_vt, w0, t0, p0, k0,
         torch.nan)
 
     llcl = safe_log(lcl_p)
-    t_at, td_at = interp_many((t, td), p, lcl_p, log=True, log_coords=lp)
+    t_at, td_at = interp_many((t, td), p, lcl_p, log=lcl_interp == 'log',
+                              log_coords=lp)
     envvt_at = thermo.virtual_temperature(
         t_at, thermo.mixing_ratio(t_at, td_at, lcl_p))
 
-    fields = {'pressure': p, 'log_pressure': lp, 'parcel': vt,
-              'env': env_vt, 'ptemp': temp, 'etemp': t}
-    level = {'pressure': lcl_p, 'log_pressure': llcl, 'parcel': lcl_vt,
-             'env': envvt_at, 'ptemp': lcl_t, 'etemp': t_at}
+    if virtual_temperature_correction:
+        parcel_track, env_track = vt, env_vt
+        lcl_track, env_at = lcl_vt, envvt_at
+    else:
+        parcel_track, env_track = temp, t
+        lcl_track, env_at = lcl_t, t_at
+
+    fields = {'pressure': p, 'log_pressure': lp, 'parcel': parcel_track,
+              'env': env_track, 'ptemp': temp, 'etemp': t}
+    level = {'pressure': lcl_p, 'log_pressure': llcl, 'parcel': lcl_track,
+             'env': env_at, 'ptemp': lcl_t, 'etemp': t_at}
     ins = insert_level(fields, level, lead=k0)
     ins_lp = ins['log_pressure']
 
     ints = find_intersections(ins['pressure'], ins['parcel'], ins['env'],
                               log_x=True, log_x_values=ins_lp,
                               log_outputs=True)
-    sol = lfc_el(ins['parcel'], ins['env'], lcl_p, lcl_vt, ints, ins_lp,
+    sol = lfc_el(ins['parcel'], ins['env'], lcl_p, lcl_track, ints, ins_lp,
                  llcl, k0)
     res = cape_cin_base(ins['env'], ins['parcel'], ints, ins_lp,
                         sol.pop('_lfc_log_pressure'),
-                        sol.pop('_el_log_pressure'))
+                        sol.pop('_el_log_pressure'),
+                        pos_cape_neg_cin=pos_cape_neg_cin,
+                        post_zero_cin=post_zero_cin)
     env500, par500 = interp_many((ins['etemp'], ins['ptemp']),
                                  ins['pressure'], 500.0, log=True,
                                  log_coords=ins_lp)
@@ -109,29 +165,36 @@ def _column_program(p, t, td, row, lcl_p, lcl_t, lcl_vt, w0, t0, p0, k0,
     return out
 
 
-def _column_outputs(p, t, td, row, scalars, k0, with_profile=False):
+def _column_outputs(p, t, td, row, scalars, k0, with_profile=False,
+                    **options):
     """:func:`_column_program` on the kernel's packed arguments; returns
     the (7, B) output block in :data:`OUTPUTS` order, and with
     ``with_profile`` also the (3, B, L+1) tracks in :data:`PROFILE`
     order."""
     out = _column_program(p, t, td, row, *scalars.unbind(-1), k0,
-                          with_profile=with_profile)
+                          with_profile=with_profile,
+                          **solve_options(**options))
     block = torch.stack([out[k] for k in OUTPUTS])
     return (block, torch.stack(out['profile'])) if with_profile else block
 
 
-def cape_cin_kernel(p, t, td, row, scalars, k0, with_profile=False):
+def cape_cin_kernel(p, t, td, row, scalars, k0, with_profile=False,
+                    **options):
     """The per-column solve on packed arguments: p/t/td (B, L), row (B, K),
     scalars (B, 6) in :data:`SCALARS` order, all of one float dtype, and k0
-    (B,) int32.  Returns the (7, B) output block in :data:`OUTPUTS` order,
-    and with ``with_profile`` also the (3, B, L+1) tracks in
-    :data:`PROFILE` order.
+    (B,) int32; ``options`` as in :func:`solve_options`.  Returns the (7, B)
+    output block in :data:`OUTPUTS` order, and with ``with_profile`` also
+    the (3, B, L+1) tracks in :data:`PROFILE` order.
 
     CUDA tensors go to the hand-written kernel (``cape_cin_kernel.launches``
-    counts each launch); CPU tensors go to the plain twin.
+    counts each launch); CPU tensors go to the plain twin.  The default
+    options launch the library's ``fused_cape_cin_<dtype>`` entry point, any
+    other setting its ``fused_cape_cin_flags_<dtype>``.
     """
+    flags = option_flags(options)
     if p.device.type == 'cpu':
-        return _column_outputs(p, t, td, row, scalars, k0, with_profile)
+        return _column_outputs(p, t, td, row, scalars, k0, with_profile,
+                               **options)
     if p.device.type != 'cuda':
         raise ValueError(f'no CAPE/CIN kernel for device {p.device}')
     B, L = p.shape
@@ -156,10 +219,14 @@ def cape_cin_kernel(p, t, td, row, scalars, k0, with_profile=False):
                         device=p.device) if with_profile else None)
     if B > 0:
         suffix = 'f32' if p.dtype == torch.float32 else 'f64'
-        launch(f'fused_cape_cin_{suffix}', p.device,
-               [*(x.data_ptr() for x in floats), k0.data_ptr(),
-                out.data_ptr(), None if prof is None else prof.data_ptr()],
-               B, L, K)
+        pointers = [*(x.data_ptr() for x in floats), k0.data_ptr(),
+                    out.data_ptr(),
+                    None if prof is None else prof.data_ptr()]
+        if flags:
+            launch(f'fused_cape_cin_flags_{suffix}', p.device, pointers,
+                   B, L, K, flags)
+        else:
+            launch(f'fused_cape_cin_{suffix}', p.device, pointers, B, L, K)
         cape_cin_kernel.launches += 1
     return (out, prof) if with_profile else out
 
@@ -171,21 +238,25 @@ class CapeCinSolve(torch.autograd.Function):
     """:func:`cape_cin_kernel` with a gradient, as the JAX package's
     ``custom_vjp``: the forward launches the kernel (the twin on a CPU
     tensor); the backward recomputes :func:`_column_outputs` from the
-    saved inputs and returns its VJP.  ``k0`` gets no gradient."""
+    saved inputs and returns its VJP.  ``k0`` gets no gradient;
+    ``options`` is a :func:`solve_options` dict (or None)."""
 
     @staticmethod
-    def forward(ctx, p, t, td, row, scalars, k0, with_profile):
+    def forward(ctx, p, t, td, row, scalars, k0, with_profile, options=None):
         ctx.with_profile = with_profile
+        ctx.options = solve_options(**(options or {}))
         ctx.save_for_backward(p, t, td, row, scalars, k0)
-        return cape_cin_kernel(p, t, td, row, scalars, k0, with_profile)
+        return cape_cin_kernel(p, t, td, row, scalars, k0, with_profile,
+                               **ctx.options)
 
     @staticmethod
     def backward(ctx, *grads):
         *floats, k0 = ctx.saved_tensors
         got = twin_vjp(
-            lambda *x: _column_outputs(*x, k0, ctx.with_profile), floats,
+            lambda *x: _column_outputs(*x, k0, ctx.with_profile,
+                                       **ctx.options), floats,
             ctx.needs_input_grad[:len(floats)], grads)
-        return (*got, None, None)
+        return (*got, None, None, None)
 
 
 def prepass(p, p0, t0, td0, tables):
@@ -206,7 +277,7 @@ def prepass(p, p0, t0, td0, tables):
 def fused_cape_cin(pressure, temperature, dewpoint, parcel_pressure=None,
                    parcel_temperature=None, parcel_dewpoint=None,
                    tables=None, with_lifted_index=False,
-                   with_profile=False):
+                   with_profile=False, **options):
     """CAPE/CIN, LFC/EL (and optionally the lifted index) for an arbitrary
     parcel, via the fused solve.
 
@@ -216,12 +287,16 @@ def fused_cape_cin(pressure, temperature, dewpoint, parcel_pressure=None,
     lifted_index), ``sol`` the LFC/EL pressures and temperatures.  With
     ``with_profile``, ``res['profile']`` holds the LCL-spliced column's
     ``pressure``, parcel ``temperature`` and ``environment_temperature``,
-    each of shape batch + (L+1,).
+    each of shape batch + (L+1,).  ``options`` are the solve's
+    (:func:`solve_options`: ``virtual_temperature_correction``,
+    ``lcl_interp``, ``pos_cape_neg_cin``, ``post_zero_cin``); with the
+    correction off the LFC/EL temperatures are real temperatures.
 
     With grad mode on and an input requiring grad, the solve goes through
     :class:`CapeCinSolve` and every output is differentiable; otherwise it
     calls :func:`cape_cin_kernel` directly.
     """
+    options = solve_options(**options)
     p, t, td = pressure, temperature, dewpoint
     if tables is None:
         tables = adiabat.default_tables(p.device, p.dtype)
@@ -245,9 +320,9 @@ def fused_cape_cin(pressure, temperature, dewpoint, parcel_pressure=None,
     row, scalars, k0 = prepass(p, p0, t0, td0, tables)
     args = (p.contiguous(), t.contiguous(), td.contiguous(), row, scalars)
     if torch.is_grad_enabled() and any(x.requires_grad for x in args):
-        out = CapeCinSolve.apply(*args, k0, with_profile)
+        out = CapeCinSolve.apply(*args, k0, with_profile, options)
     else:
-        out = cape_cin_kernel(*args, k0, with_profile)
+        out = cape_cin_kernel(*args, k0, with_profile, **options)
     if with_profile:
         out, prof = out
     shaped = {k: v.reshape(batch_shape) for k, v in zip(OUTPUTS, out)}
@@ -264,5 +339,5 @@ def fused_cape_cin(pressure, temperature, dewpoint, parcel_pressure=None,
 
 def fused_surface_cape_cin(pressure, temperature, dewpoint, **kwargs):
     """Surface-based CAPE/CIN via the fused solve (parcel = lowest
-    level)."""
+    level); ``kwargs`` as for :func:`fused_cape_cin`."""
     return fused_cape_cin(pressure, temperature, dewpoint, **kwargs)

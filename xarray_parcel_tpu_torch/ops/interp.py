@@ -74,3 +74,31 @@ def log_interp(x, coords, at, extrapolate=False):
     """``linear_interp`` in log-coordinate space."""
     return interp_many((x,), coords, at, extrapolate=extrapolate,
                        log=True)[0]
+
+
+def interp1d(at, xp, fp):
+    """Per-column linear interpolation with ``np.interp`` semantics.
+
+    ``at``: query points (…, M); ``xp``: monotonically increasing knots
+    (…, N); ``fp``: knot values (…, N).  Queries outside the knots clamp to
+    the end values; NaN queries give NaN (and never enter the arithmetic).
+    """
+    batch = torch.broadcast_shapes(at.shape[:-1], xp.shape[:-1],
+                                   fp.shape[:-1])
+    at = at.expand(batch + at.shape[-1:])
+    xp = xp.expand(batch + xp.shape[-1:]).contiguous()
+    fp = fp.expand(batch + fp.shape[-1:])
+    nan = torch.isnan(at)
+    # searchsorted wants ordered queries no more than the knots; a NaN
+    # query sorts as the largest value, and is masked at the end.
+    idx = torch.searchsorted(xp, at.contiguous(), side='left')
+    hi = idx.clamp(1, xp.shape[-1] - 1)
+    lo = hi - 1
+    x0, x1 = xp.gather(-1, lo), xp.gather(-1, hi)
+    f0, f1 = fp.gather(-1, lo), fp.gather(-1, hi)
+    safe_at = torch.where(nan, x0, at)
+    t = (safe_at - x0) / (x1 - x0)
+    out = f0 + t * (f1 - f0)
+    out = torch.where(safe_at <= xp[..., :1], fp[..., :1], out)
+    out = torch.where(safe_at >= xp[..., -1:], fp[..., -1:], out)
+    return torch.where(nan, torch.nan, out)

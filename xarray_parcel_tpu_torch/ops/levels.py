@@ -74,6 +74,27 @@ def insert_level(fields, level, coord='pressure', lead=None):
     return out
 
 
+def compact_left(fields, key):
+    """Shift every column left to drop its leading NaNs in ``fields[key]``
+    (the reference's ``shift_out_nans``); vacated trailing slots are NaN.
+
+    ``fields``: dict of tensors broadcastable to one (…, L) shape.
+    Non-float fields are promoted to float32 so that the NaN fill is
+    representable.  An all-NaN key column is left as it is.
+    """
+    fields = _broadcast_fields(fields)
+    fields = {k: v if v.is_floating_point() else v.to(torch.float32)
+              for k, v in fields.items()}
+    v = fields[key]
+    L = v.shape[-1]
+    lead = first_valid_index(v)[..., None]
+    idx = lead + torch.arange(L, device=v.device)
+    valid = idx < L
+    idx = idx.clamp(max=L - 1)
+    return {k: torch.where(valid, arr.gather(-1, idx), torch.nan)
+            for k, arr in fields.items()}
+
+
 def bound_pressure(pressure, bound):
     """Closest pressure level to ``bound``; ties take the larger pressure."""
     diffs = torch.abs(pressure - bound[..., None])

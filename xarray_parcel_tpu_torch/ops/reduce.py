@@ -39,3 +39,13 @@ def nanmean(x, where=None, dim=-1):
     s = torch.where(m, x, 0.0).sum(dim)
     n = m.sum(dim)
     return torch.where(n > 0, s / n.clamp(min=1), torch.nan)
+
+
+def nancount(x, where=None, dim=-1):
+    """Count of the entries that are not NaN (and in ``where``)."""
+    return _mask(x, where).sum(dim)
+
+
+def any_valid(x, where=None, dim=-1):
+    """True where at least one entry is not NaN (and in ``where``)."""
+    return _mask(x, where).any(dim)
