@@ -30,24 +30,39 @@ the level dim leading through ``xarray_api``'s fused pipelines, the surface
 solve and the storm proxies with the default device, every variable equal
 to the tensor-level path's, with the call's time split into lowering,
 copies, compute and lifting (phase 10); and the same Dataset streamed in
-chunks of 65,536 columns, with its rate and peak memory (phase 11).  Each
-phase prints one line; the last two lines are the kernel record and the
-result line.
+chunks of 65,536 columns, with its rate and peak memory (phase 11).  Then
+the modules around them: a 2-way mesh on the one card (the same device
+twice) with an uneven batch through ``parallel.sharded_map``, ``mesh=`` on
+the Dataset call whole and streamed, and ``global_stats`` through a
+one-process NCCL group (phase 12); a slim deployment artifact with the
+kernel library inside, served by ``python -m xarray_parcel_tpu_torch.deploy
+serve`` in a fresh process that finds neither the library, nor ``nvcc`` on
+its ``PATH``, nor a table cache, then loaded here and called on device
+tensors and on host arrays, and ``xarray_api.serve`` on the Dataset (phase
+13); and the C++ ingest against its numpy form with both times, and
+``utils.columns_per_second`` against phase 5's rate (phase 14).  Each phase
+prints one line; the last two lines are the kernel record and the result
+line.
 
 Exits non-zero, with no result line, when there is no CUDA device or when
 any check fails.  Imports nothing of JAX.
 """
 
 import json
+import os
+import socket
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 import xarray_parcel_tpu_torch as xt
-from xarray_parcel_tpu_torch import _build, adiabat, fused, parcels
+from xarray_parcel_tpu_torch import (_build, adiabat, deploy, fused, native,
+                                     parallel, parcels, utils)
 from xarray_parcel_tpu_torch import diagnostics as diag
 from xarray_parcel_tpu_torch import xarray_api as xapi
 from xarray_parcel_tpu_torch.lcl import lcl
@@ -1153,6 +1168,287 @@ def main():
         f'(whole {whole_s * 1e3:.1f} ms); peak device memory above what was '
         f'allocated before the call {stream_peak / 2**30:.2f} GiB streamed, '
         f'{whole_peak / 2**30:.2f} GiB whole; {smi}')
+
+    # 12. A mesh: two entries on the one card, an uneven batch.
+    mesh = parallel.make_mesh([dev, dev])
+    n_uneven = MAIN_COLUMNS - 1
+    dat_c = {k: v.contiguous() for k, v in dat.items()}
+    single = xt.conv_properties_fused(
+        {k: v[:n_uneven] for k, v in dat_c.items()}, tables=tab32)
+    padded, lead = parallel.pad_batch(
+        {k: v[:n_uneven] for k, v in dat_np.items()}, mesh)
+    if lead != n_uneven or any(v.shape[0] != MAIN_COLUMNS
+                               for v in padded.values()):
+        raise AssertionError('pad_batch: wrong sizes')
+    copies = parallel.replicate(tab32, mesh)
+    run_sharded = parallel.sharded_map(
+        lambda d, tables: xt.conv_properties_fused(d, tables=tables), mesh)
+    sharded_in = parallel.shard_batch(padded, mesh)
+    del padded
+    fused.cape_cin_kernel.launches = diag.diag_kernel.launches = 0
+    sharded = run_sharded(sharded_in, tables=copies)
+    torch.cuda.synchronize()
+    counts = (fused.cape_cin_kernel.launches, diag.diag_kernel.launches)
+    if counts != (6, 2):
+        raise AssertionError(f'sharded pipeline: (solve, tail) launches '
+                             f'{counts}, want (6, 2)')
+    launches['fused_cape_cin'] += counts[0]
+    launches['diag_tail'] += counts[1]
+    if set(sharded) != set(single):
+        raise AssertionError('sharded pipeline: other variables')
+    for k, v in single.items():
+        got = sharded[k]
+        if (got.shape != (MAIN_COLUMNS,) or len(got.shards) != 2
+                or got.devices != {dev}):
+            raise AssertionError(f'sharded {k}: {got}')
+        want = v.cpu().numpy()
+        if not np.array_equal(got.numpy()[:lead], want,
+                              equal_nan=want.dtype.kind == 'f'):
+            raise AssertionError(f'sharded {k}: not bit-equal to the single '
+                                 f'call')
+    sharded_s = wall_median(lambda: run_sharded(sharded_in, tables=copies), 5)
+    del sharded_in, single
+
+    # The Dataset surface with the mesh, whole and streamed.
+    fused.cape_cin_kernel.launches = diag.diag_kernel.launches = 0
+    ds_mesh = xapi.conv_properties_fused(ds, mesh=mesh)
+    counts = (fused.cape_cin_kernel.launches, diag.diag_kernel.launches)
+    if counts != (6, 2):
+        raise AssertionError(f'Dataset mesh=: launches {counts}')
+    launches['fused_cape_cin'] += counts[0]
+    launches['diag_tail'] += counts[1]
+    fused.cape_cin_kernel.launches = diag.diag_kernel.launches = 0
+    ds_mesh_streamed = xapi.conv_properties_fused(
+        ds, stream_columns=STREAM_COLUMNS, mesh=mesh)
+    counts = (fused.cape_cin_kernel.launches, diag.diag_kernel.launches)
+    if counts != (6 * n_chunks, 2 * n_chunks):
+        raise AssertionError(f'Dataset mesh= streamed: launches {counts} in '
+                             f'{n_chunks} chunks of 2 shards')
+    launches['fused_cape_cin'] += counts[0]
+    launches['diag_tail'] += counts[1]
+
+    def same_datasets(name, got, want):
+        """Every variable bit-equal, with its attrs; the same coords."""
+        if set(got.data_vars) != set(want.data_vars):
+            raise AssertionError(f'{name}: other variables')
+        for k in want.data_vars:
+            a, b = np.asarray(got[k].values), np.asarray(want[k].values)
+            if a.dtype != b.dtype or not np.array_equal(
+                    a, b, equal_nan=b.dtype.kind == 'f'):
+                raise AssertionError(f'{name}/{k}: not bit-equal')
+            if got[k].attrs != want[k].attrs or got[k].dims != want[k].dims:
+                raise AssertionError(f'{name}/{k}: attrs or dims differ')
+        for c in want.coords:
+            if not np.array_equal(np.asarray(got.coords[c].values),
+                                  np.asarray(want.coords[c].values)):
+                raise AssertionError(f'{name}: coordinate {c} differs')
+
+    same_datasets('Dataset mesh=', ds_mesh, whole)
+    same_datasets('Dataset mesh= streamed', ds_mesh_streamed, streamed)
+    ds_mesh_s = wall_median(lambda: xapi.conv_properties_fused(ds, mesh=mesh),
+                            3)
+    del ds_mesh, ds_mesh_streamed
+
+    # The validation reduction through a one-process NCCL group: a real
+    # all-reduce on the card.
+    if not dist.is_nccl_available():
+        raise AssertionError('torch.distributed has no NCCL')
+    with socket.socket() as sock:
+        sock.bind(('127.0.0.1', 0))
+        port = sock.getsockname()[1]
+    parallel.distributed_init(f'127.0.0.1:{port}', 1, 0)
+    try:
+        if dist.get_backend() != 'nccl':
+            raise AssertionError(f'backend {dist.get_backend()}, want nccl')
+        cnt, mean, mx = parallel.global_stats(sharded['mu_cape'], mesh)
+    finally:
+        dist.destroy_process_group()
+    mu = sharded['mu_cape'].numpy()
+    fin = np.isfinite(mu)
+    if (int(cnt) != int(fin.sum()) or float(mx) != float(mu[fin].max())
+            or abs(float(mean) - mu[fin].astype(np.float64).mean())
+            > 1e-9 * abs(float(mean))):
+        raise AssertionError(f'global_stats {int(cnt)}, {float(mean)!r}, '
+                             f'{float(mx)!r} vs numpy {int(fin.sum())}, '
+                             f'{mu[fin].astype(np.float64).mean()!r}, '
+                             f'{mu[fin].max()!r}')
+    del sharded
+    log(f'[12 mesh] 2-way mesh on the one card (cuda:0 twice, one host '
+        f'thread per entry), {n_uneven} columns padded to {MAIN_COLUMNS}: '
+        f'conv_properties_fused through sharded_map bit-equal to the single '
+        f'call on every variable, (solve, tail) launches 6+2; '
+        f'{MAIN_COLUMNS / sharded_s:.4g} columns/s ({sharded_s * 1e3:.2f} '
+        f'ms) against the single call\'s {rates["pipeline"]:.4g} (one card: '
+        f'this is what the machinery costs, not a speed-up; several cards '
+        f'were not measured); xarray_api.conv_properties_fused(ds, mesh=) '
+        f'bit-equal to the unsharded call, {ds_mesh_s * 1e3:.1f} ms (whole '
+        f'{whole_s * 1e3:.1f} ms), and with stream_columns={STREAM_COLUMNS} '
+        f'({6 * n_chunks}+{2 * n_chunks} launches) bit-equal to the '
+        f'unsharded streamed call; global_stats of mu_cape through a '
+        f'one-process NCCL all-reduce equals numpy: {int(cnt)} finite, mean '
+        f'{float(mean):.3f}, max {float(mx):.3f}; {smi}')
+
+    # 13. Deployment: export, serve in a fresh process, serve in process.
+    want13 = xt.conv_properties_fused(dat_c, tables=tab32)
+    want13.update(xt.storm_proxies(want13))
+    root = os.path.dirname(os.path.abspath(__file__))
+    lib_path = _build.library_path()
+
+    def bit_equal(name, got):
+        """Hold host arrays ``got`` to ``want13`` bit for bit."""
+        for k, v in want13.items():
+            ref = v[:len(got[k])].cpu().numpy()
+            differ = ~((got[k] == ref) | (np.isnan(got[k].astype(float))
+                                          & np.isnan(ref.astype(float))))
+            if not isinstance(got[k], np.ndarray) or differ.any():
+                raise AssertionError(
+                    f'{name}/{k}: {int(differ.sum())} columns not bit-equal '
+                    f'to the in-process pipeline, first {differ.argmax()}: '
+                    f'{got[k][differ][:4]} vs {ref[differ][:4]}')
+
+    with tempfile.TemporaryDirectory() as tmp:
+        art = os.path.join(tmp, 'pipeline.xpz')
+        dep = deploy.export_pipeline(
+            'conv_properties_fused_with_proxies', batch=STREAM_COLUMNS,
+            levels=LEVELS, tables=tab32, path=art)
+        if not dep.meta['slim'] or not dep.meta['kernel_library']:
+            raise AssertionError(f'artifact: {dep.meta}')
+        art_bytes = os.path.getsize(art)
+        infile = os.path.join(tmp, 'in.npz')
+        outfile = os.path.join(tmp, 'out.npz')
+        np.savez(infile, **dat_np)
+        no_cache = os.path.join(tmp, 'no_tables.npz')
+        env = dict(os.environ, XPARCEL_TORCH_TABLE_CACHE=no_cache)
+        env['PATH'] = os.pathsep.join(
+            d for d in env.get('PATH', '').split(os.pathsep)
+            if not os.path.exists(os.path.join(d, 'nvcc')))
+        aside = lib_path + '.aside'
+        os.replace(lib_path, aside)
+        try:
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, '-m', 'xarray_parcel_tpu_torch.deploy',
+                 'serve', art, '--input', infile, '-o', outfile],
+                cwd=root, env=env, capture_output=True, text=True,
+                timeout=600)
+            fresh_s = time.perf_counter() - t0
+            if proc.returncode != 0:
+                raise AssertionError(f'fresh serving process failed:\n'
+                                     f'{proc.stdout}\n{proc.stderr[-3000:]}')
+            with open(lib_path, 'rb') as f:
+                if f.read() != dep._library:
+                    raise AssertionError('the serving process did not take '
+                                         'the artifact\'s kernel library')
+        finally:
+            os.replace(aside, lib_path)
+        if os.path.exists(no_cache):
+            raise AssertionError('the serving process built tables')
+        with np.load(outfile) as f:
+            served = {k: f[k] for k in f.files}
+        if set(served) != set(want13):
+            raise AssertionError('served: other variables')
+        serve_err = compare('served vs pipeline/',
+                            {k: torch.from_numpy(v)
+                             for k, v in served.items()}, want13, 'float32')
+
+        # The same artifact loaded here: an exact fit on device tensors,
+        # and host arrays padded and chunked.
+        loaded = deploy.load(art)
+        fit = {k: v[:STREAM_COLUMNS] for k, v in dat_c.items()}
+        fused.cape_cin_kernel.launches = diag.diag_kernel.launches = 0
+        out_fit = loaded(fit)
+        counts = (fused.cape_cin_kernel.launches, diag.diag_kernel.launches)
+        if counts != (3, 1):
+            raise AssertionError(f'Deployed exact fit: launches {counts}')
+        launches['fused_cape_cin'] += counts[0]
+        launches['diag_tail'] += counts[1]
+        if any(v.device != dev for v in out_fit.values()):
+            raise AssertionError('Deployed exact fit: outputs off the card')
+        bit_equal('Deployed exact fit', xapi.to_host(out_fit))
+        fit_rate, _ = utils.columns_per_second(loaded, fit,
+                                               columns=STREAM_COLUMNS)
+        fused.cape_cin_kernel.launches = diag.diag_kernel.launches = 0
+        out_host = loaded(dat_np)
+        counts = (fused.cape_cin_kernel.launches, diag.diag_kernel.launches)
+        if counts != (3 * n_chunks, n_chunks):
+            raise AssertionError(f'Deployed pad and chunk: launches {counts}')
+        launches['fused_cape_cin'] += counts[0]
+        launches['diag_tail'] += counts[1]
+        bit_equal('Deployed pad and chunk', out_host)
+        bit_equal('fresh serving process', served)
+        n_served = len(served)
+        del served
+        del out_host, out_fit
+        host_s = wall_median(lambda: loaded(dat_np), 3)
+
+        # A Dataset through the artifact.
+        fused.cape_cin_kernel.launches = diag.diag_kernel.launches = 0
+        ds_served = xapi.serve(ds, loaded)
+        counts = (fused.cape_cin_kernel.launches, diag.diag_kernel.launches)
+        if counts != (3 * n_chunks, n_chunks):
+            raise AssertionError(f'xarray_api.serve: launches {counts}')
+        launches['fused_cape_cin'] += counts[0]
+        launches['diag_tail'] += counts[1]
+        same_datasets('xarray_api.serve', ds_served, xapi.xr.merge(
+            [whole, ds_outs['proxies']]))
+        del ds_served
+    del want13
+    log(f'[13 deploy] conv_properties_fused_with_proxies exported slim at '
+        f'batch {STREAM_COLUMNS}: {art_bytes} bytes with the kernel library; '
+        f'`python -m xarray_parcel_tpu_torch.deploy serve` of {MAIN_COLUMNS} '
+        f'columns from an .npz in a fresh process, with the kernel library '
+        f'moved aside, no nvcc on PATH and an empty table cache: '
+        f'{fresh_s:.2f} s from start to outputs written (it took the '
+        f'artifact\'s library and built no tables; this run built the '
+        f'library in {build_s:.2f} s, the coefficients in {tables_s:.2f} s '
+        f'and the cached tables in {load_s:.2f} s), all '
+        f'{n_served} variables bit-equal to the in-process '
+        f'pipeline, max |diff| {serve_err:.3g}; Deployed in this process: '
+        f'exact fit on device tensors (3+1 launches, device tensors out) '
+        f'{fit_rate:.4g} columns/s, {MAIN_COLUMNS} columns of host arrays '
+        f'padded and chunked ({3 * n_chunks}+{n_chunks} launches) '
+        f'{MAIN_COLUMNS / host_s:.4g} columns/s ({host_s * 1e3:.1f} ms), both '
+        f'bit-equal; xarray_api.serve of the Dataset: every variable, attrs '
+        f'and coords equal to conv_properties_fused and storm_proxies; '
+        f'{smi}')
+    del dat_c
+
+    # 14. The C++ ingest and the timers.
+    if not native.available():
+        raise AssertionError('native.available() is false: the C++ ingest '
+                             'did not build')
+    var = np.asarray(ds['temperature'].values)
+
+    def host_ms(fn):
+        return wall_median(fn, 5) * 1e3
+
+    moved = native.levels_to_last(var)
+    if not np.array_equal(moved, native._levels_to_last_numpy(var)) or (
+            moved.shape != GRID + (LEVELS,)):
+        raise AssertionError('levels_to_last: C++ and numpy differ')
+    del moved
+    numpy_a = host_ms(lambda: native._levels_to_last_numpy(var))
+    cxx_a = host_ms(lambda: native.levels_to_last(var))
+    cxx_b = host_ms(lambda: native.levels_to_last(var))
+    numpy_b = host_ms(lambda: native._levels_to_last_numpy(var))
+    cps, cps_s = utils.columns_per_second(
+        lambda *a: xt.fused_surface_cape_cin(*a, tables=tab32,
+                                             with_lifted_index=True),
+        p, t, td)
+    if utils.infer_columns((p,)) != MAIN_COLUMNS:
+        raise AssertionError('infer_columns: wrong count')
+    if not 0.5 <= cps / rates['surface'] <= 2.0:
+        raise AssertionError(f'columns_per_second {cps:.4g} against phase '
+                             f'5\'s {rates["surface"]:.4g} columns/s')
+    log(f'[14 ingest] native.available(); levels_to_last of one '
+        f'({LEVELS}, {GRID[0]}, {GRID[1]}) float32 variable, C++ equal to '
+        f'numpy: C++ {cxx_a:.1f}/{cxx_b:.1f} ms, numpy (8 threads) '
+        f'{numpy_a:.1f}/{numpy_b:.1f} ms, medians of 5 on '
+        f'{os.cpu_count()} cores; utils.columns_per_second on the surface '
+        f'solve {cps:.4g} columns/s ({cps_s * 1e3:.2f} ms a call, 5 calls '
+        f'then one wait) against phase 5\'s {rates["surface"]:.4g} (median '
+        f'of 5 waited calls), held to a factor of two: the solve is '
+        f'host-bound and spreads that much between runs; {smi}')
 
     record = {'kernels': [{
         'name': 'fused_cape_cin',

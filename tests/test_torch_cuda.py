@@ -230,7 +230,7 @@ def test_tail_wrapper_rejects_what_the_kernel_does_not_take(device):
         diag.diag_kernel(p[0], t[0], td[0], h[0])
 
 
-# --- the solve's options ------------------------------------------------------
+# --- the solve's options -----------------------------------------------------
 
 @pytest.mark.parametrize('L', WIDTHS)
 @pytest.mark.parametrize('dtype', [torch.float64, torch.float32])
@@ -296,7 +296,7 @@ def test_options_reach_the_gradient(device, coeffs):
                              skip=chip_smoke.repeated_level(p))
 
 
-# --- streaming ----------------------------------------------------------------
+# --- streaming ---------------------------------------------------------------
 
 def small_dataset(grid=(24, 40), L=30, seed=3):
     dat_np, td = chip_smoke.synthetic(grid[0] * grid[1], L=L, seed=seed)
@@ -368,3 +368,96 @@ def test_default_device_is_the_card(device, coeffs):
                                              post_zero_cin=True)
     assert fused.cape_cin_kernel.launches == before[0] + 2
     assert (np.asarray(sb['cin'].values) <= 0).all()
+
+
+# --- the mesh and deployment artifacts on the card ---------------------------
+
+def pipeline_inputs(n, L=90, seed=0):
+    dat, _ = chip_smoke.synthetic(n, L=L, seed=seed)
+    return {k: np.ascontiguousarray(v) for k, v in dat.items()}
+
+
+def test_two_way_mesh_on_one_card(device, coeffs):
+    """``cuda:0`` twice: two shards run concurrently on the one card, each
+    on its own host thread; every variable equals the single call's bit for
+    bit and the launch counts are exact, twice (3, 1)."""
+    from xarray_parcel_tpu_torch import parallel, pipeline
+    tables = AdiabatTables(coeffs.float())
+    mesh = parallel.make_mesh([device, device])
+    assert mesh.local_devices() == [device]
+    dat = pipeline_inputs(4099, seed=3)
+    single = pipeline.conv_properties_fused(xapi.to_device(dat, device),
+                                            tables=tables)
+    padded, lead = parallel.pad_batch(dat, mesh)
+    run = parallel.sharded_map(
+        lambda d, tables: pipeline.conv_properties_fused(d, tables=tables),
+        mesh)
+    fused.cape_cin_kernel.launches = diag.diag_kernel.launches = 0
+    out = run(padded, tables=parallel.replicate(tables, mesh))
+    torch.cuda.synchronize()
+    assert (fused.cape_cin_kernel.launches,
+            diag.diag_kernel.launches) == (6, 2)
+    for k, v in single.items():
+        assert out[k].devices == {device} and len(out[k].shards) == 2
+        np.testing.assert_array_equal(out[k].numpy()[:lead],
+                                      v.cpu().numpy(), err_msg=k)
+    streamed = stream_map(
+        lambda d: pipeline.conv_properties_fused(d, tables=tables), dat,
+        batch_columns=1024, mesh=mesh)
+    for k, v in single.items():
+        np.testing.assert_array_equal(streamed[k], v.cpu().numpy(),
+                                      err_msg=k)
+    with pytest.raises(ValueError, match='is not in the mesh'):
+        stream_map(lambda d: d, dat, mesh=mesh, device='cpu')
+
+
+def test_launch_counts_are_exact_from_many_threads(device, coeffs):
+    """Eight entries on the one card launch the solve at once, many times:
+    no launch is lost from the count."""
+    from xarray_parcel_tpu_torch import parallel
+    tables = AdiabatTables(coeffs.float())
+    mesh = parallel.make_mesh([device] * 8)
+    p, t, td = (np.ascontiguousarray(x)
+                for x in chip_smoke.synthetic_columns(8 * 64))
+
+    def many(p, t, td, tables):
+        for _ in range(25):
+            res, _ = fused.fused_surface_cape_cin(p, t, td, tables=tables)
+        return res['cape']
+
+    fused.cape_cin_kernel.launches = 0
+    out = parallel.sharded_map(many, mesh)(
+        p, t, td, tables=parallel.replicate(tables, mesh))
+    torch.cuda.synchronize()
+    assert fused.cape_cin_kernel.launches == 8 * 25
+    want, _ = fused.fused_surface_cape_cin(
+        *(torch.from_numpy(x).to(device) for x in (p, t, td)), tables=tables)
+    np.testing.assert_array_equal(out.numpy(), want['cape'].cpu().numpy())
+
+
+def test_deployed_exact_fit_returns_cuda_tensors(device, coeffs, tmp_path):
+    """An artifact exported beside the card carries the kernel library; an
+    exact fit on device tensors stays on the card, host arrays of another
+    size pad and chunk to the same values."""
+    from xarray_parcel_tpu_torch import _build, deploy, pipeline
+    tables = AdiabatTables(coeffs.float())
+    path = tmp_path / 'fused.xpz'
+    deploy.export_pipeline('min_conv_properties_fused', batch=2048,
+                           tables=tables, path=path)
+    loaded = deploy.load(path)
+    assert loaded.meta['kernel_library'] and loaded.meta['platforms'] == [
+        'cuda']
+    with open(_build.library_path(), 'rb') as f:
+        assert f.read() == loaded._library
+    dat = pipeline_inputs(5000, seed=5)
+    want = pipeline.min_conv_properties_fused(xapi.to_device(dat, device),
+                                              tables=tables)
+    fit = {k: torch.from_numpy(v[:2048]).to(device) for k, v in dat.items()}
+    out = loaded(fit)
+    for k, v in out.items():
+        assert v.device == device
+        assert torch.equal(v.nan_to_num(7.0), want[k][:2048].nan_to_num(7.0))
+    served = loaded(dat)
+    for k, v in want.items():
+        assert isinstance(served[k], np.ndarray)
+        np.testing.assert_array_equal(served[k], v.cpu().numpy(), err_msg=k)

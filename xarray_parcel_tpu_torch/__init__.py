@@ -16,8 +16,11 @@ built at first use by ``_build.py``), on the CPU in their plain torch
 twins; every output is differentiable, the kernels' gradient being their
 twins' VJP.  The modular path is plain torch on either device.
 ``adiabat`` builds its own moist-adiabat tables; ``parallel`` chunks and
-streams column batches on one device.  Imports torch and numpy (and xarray
-if it is installed, else its own ``xr_lite``).
+streams column batches and shards them over a mesh of devices; ``deploy``
+exports a pipeline as an artifact that a fresh process serves without
+building kernels or tables; ``native`` is the C++ host ingest and ``utils``
+the timers.  Imports torch and numpy (and xarray if it is installed, else
+its own ``xr_lite``).
 """
 
 from . import adiabat, cape, constants, diagnostics, fused, lcl, ops
@@ -35,6 +38,8 @@ from .pipeline import (conv_properties, conv_properties_fused,
                        storm_proxies)
 from .profile import (add_lcl_to_profile, parcel_profile,
                       parcel_profile_with_lcl)
+
+__version__ = '0.1.0'
 
 __all__ = ['adiabat', 'cape', 'constants', 'diagnostics', 'fused', 'lcl',
            'ops', 'parcels', 'pipeline', 'profile', 'thermo',

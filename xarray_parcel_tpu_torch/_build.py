@@ -43,6 +43,7 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-fmad=false', '-Xcompiler', '-fPIC')
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 _loaded = {}                    # sources directory -> loaded library
 _active = CSRC                  # whose kernels launch() calls
 
@@ -149,6 +150,15 @@ def kernels_from(csrc):
         yield
     finally:
         _active = before
+
+
+def count_launch(wrapper):
+    """Add one to ``wrapper.launches``, the count of kernel launches a
+    wrapper keeps.  Under a lock: ``parallel.sharded_map`` and
+    ``stream_map(mesh=)`` launch from one thread per mesh entry, and an
+    unguarded ``+=`` would lose counts."""
+    with _count_lock:
+        wrapper.launches += 1
 
 
 def launch(name, device, pointers, batch, *widths):

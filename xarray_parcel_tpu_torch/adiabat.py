@@ -488,13 +488,24 @@ def blend_coeff_rows(tables, fidx):
     return torch.where(nan[..., None], torch.nan, row)
 
 
+class MissingTableError(ValueError):
+    """A table mode was asked of tables that lack the array ``table``
+    (``'curves'`` or ``'lookup'``)."""
+
+    def __init__(self, table, mode):
+        super().__init__(
+            f'moist_lapse {mode} needs tables.{table}, and these tables have '
+            f'none: call load_moist_adiabat_lookups() or '
+            f'AdiabatTables.build(..., with_tables=True)')
+        self.table = table
+
+
 def _table(tables, name, mode):
-    """The ``curves`` or ``lookup`` buffer, or a ValueError naming it."""
+    """The ``curves`` or ``lookup`` buffer, or a
+    :class:`MissingTableError` naming it."""
     x = getattr(tables, name)
     if x is None:
-        raise ValueError(f'moist_lapse {mode} needs tables.{name}, and these '
-                         f'tables have none: call load_moist_adiabat_lookups() '
-                         f'or AdiabatTables.build(..., with_tables=True)')
+        raise MissingTableError(name, mode)
     return x
 
 

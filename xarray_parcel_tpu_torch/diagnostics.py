@@ -17,7 +17,7 @@ twin's VJP.
 import torch
 
 from . import adiabat, thermo
-from ._build import launch
+from ._build import count_launch, launch
 from ._vjp import twin_vjp
 from .lcl import lcl
 from .ops import find_intersections, interp_many, log_interp, nanmin, notnan
@@ -188,7 +188,7 @@ def diag_kernel(p, t, td, h):
         suffix = 'f32' if p.dtype == torch.float32 else 'f64'
         launch(f'diag_tail_{suffix}', p.device,
                [*(x.data_ptr() for x in ins), out.data_ptr()], B, L)
-        diag_kernel.launches += 1
+        count_launch(diag_kernel)
     return out
 
 

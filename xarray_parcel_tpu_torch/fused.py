@@ -28,7 +28,7 @@ import torch
 
 from . import adiabat, thermo
 from . import constants as c
-from ._build import launch
+from ._build import count_launch, launch
 from ._vjp import twin_vjp
 from .adiabat import P_BOT, P_TOP, _eval_spectral
 from .cape import cape_cin_base, lfc_el
@@ -227,7 +227,7 @@ def cape_cin_kernel(p, t, td, row, scalars, k0, with_profile=False,
                    B, L, K, flags)
         else:
             launch(f'fused_cape_cin_{suffix}', p.device, pointers, B, L, K)
-        cape_cin_kernel.launches += 1
+        count_launch(cape_cin_kernel)
     return (out, prof) if with_profile else out
 
 

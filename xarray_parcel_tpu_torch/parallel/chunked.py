@@ -41,6 +41,18 @@ def _map_leaves(fn, tree):
     return fn(tree)
 
 
+def _tree_leaves(tree):
+    """The leaves of a (nested) dict/list/tuple, in order."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tree_leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _tree_leaves(v)
+    else:
+        yield tree
+
+
 def _zip_leaves(fn, trees):
     """``fn`` over the lists of corresponding tensors of same-shaped
     trees."""

@@ -19,6 +19,7 @@ import torch
 
 from . import diagnostics as diag
 from . import thermo
+from .fieldset import annotate
 from .fused import fused_cape_cin
 from .ops import interp_many
 from .parcels import (bridge_neighbors, conserved_fields,
@@ -49,7 +50,8 @@ def _mask_invalid(out, valid):
     return out
 
 
-def conv_properties(dat, ignore_nans=False, tables=None, moist_lapse=None):
+def conv_properties(dat, ignore_nans=False, tables=None, moist_lapse=None,
+                    with_attrs=False):
     """The full ~20-variable diagnostics set on the modular path: CAPE/CIN
     of the most-unstable (250 hPa), mixed-100 and mixed-50 parcels from
     their profiles, the lifted index of each profile and its DCI, the
@@ -59,6 +61,8 @@ def conv_properties(dat, ignore_nans=False, tables=None, moist_lapse=None):
     ``tables``/``moist_lapse`` select the lifting backend of every profile
     (:func:`profile.parcel_profile`).  Unless ``ignore_nans``, every output
     is NaN (booleans False) in a column where any input level is NaN.
+    ``with_attrs`` returns a :class:`fieldset.FieldSet` (the same dict, with
+    ``long_name``/``units`` attrs per variable).
     """
     kw = dict(tables=tables, moist_lapse=moist_lapse)
     p, t, dew, valid = _dewpoint_and_valid(dat)
@@ -95,15 +99,18 @@ def conv_properties(dat, ignore_nans=False, tables=None, moist_lapse=None):
     out['freezing_level'] = diag.freezing_level_height(t, height)
     out['melting_level'] = diag.melting_level_height(p, t, dew, height)[0]
     out.update(_shear(dat))
-    return out if ignore_nans else _mask_invalid(out, valid)
+    if not ignore_nans:
+        out = _mask_invalid(out, valid)
+    return annotate(out) if with_attrs else out
 
 
-def min_conv_properties(dat, tables=None, moist_lapse=None):
+def min_conv_properties(dat, tables=None, moist_lapse=None,
+                        with_attrs=False):
     """The reduced diagnostics set on the modular path: mixed-100 CAPE/CIN
     and lifted index, 700-500 hPa lapse rate, 500 hPa temperature,
     freezing/melting level heights and 0-6 km shear.  As in the JAX
     package, no valid-column mask: NaN levels propagate through each
-    output's own NaN rules."""
+    output's own NaN rules.  ``with_attrs`` as in :func:`conv_properties`."""
     p, t = dat['pressure'], dat['temperature']
     dew = thermo.dewpoint_from_specific_humidity(p, t,
                                                  dat['specific_humidity'])
@@ -119,7 +126,7 @@ def min_conv_properties(dat, tables=None, moist_lapse=None):
     out['freezing_level'] = diag.freezing_level_height(t, height)
     out['melting_level'] = diag.melting_level_height(p, t, dew, height)[0]
     out.update(_shear(dat))
-    return out
+    return annotate(out) if with_attrs else out
 
 
 def _fused_solve(fields, parcel, tables):
@@ -142,7 +149,7 @@ def _shear(dat):
 
 
 def conv_properties_fused(dat, ignore_nans=False, tables=None,
-                          mix_grow=False):
+                          with_attrs=False, mix_grow=False):
     """The full ~20-variable diagnostics set for every column: CAPE/CIN,
     lifted index and DCI of the most-unstable, mixed-100 and mixed-50
     parcels, the most-unstable mixing ratio, 700-500 hPa lapse rate, 500 hPa
@@ -153,7 +160,8 @@ def conv_properties_fused(dat, ignore_nans=False, tables=None,
     every output is NaN (booleans False) in a column where any input level
     is NaN.  ``mix_grow`` splices the mixed parcels in as an extra level
     (``mix_layer(grow=True)``, L+1 levels) instead of the default slot
-    write: the same profile, at the cost of the splice.
+    write: the same profile, at the cost of the splice.  ``with_attrs``
+    as in :func:`conv_properties`.
     """
     p, t, dew, valid = _dewpoint_and_valid(dat)
 
@@ -199,17 +207,20 @@ def conv_properties_fused(dat, ignore_nans=False, tables=None,
         'melting_level': mlh,
     }
     out.update(_shear(dat))
-    return out if ignore_nans else _mask_invalid(out, valid)
+    if not ignore_nans:
+        out = _mask_invalid(out, valid)
+    return annotate(out) if with_attrs else out
 
 
-def min_conv_properties_fused(dat, tables=None):
+def min_conv_properties_fused(dat, tables=None, with_attrs=False):
     """The reduced diagnostics set: mixed-100 CAPE/CIN and lifted index,
     700-500 hPa lapse rate, 500 hPa temperature, freezing/melting level
     heights and 0-6 km shear.
 
     One fused CAPE/CIN solve and one diagnostics tail run per call.  As in
     the JAX package, there is no valid-column mask: NaN levels propagate
-    through each output's own NaN rules.
+    through each output's own NaN rules.  ``with_attrs`` as in
+    :func:`conv_properties`.
     """
     p = dat['pressure']
     t = dat['temperature']
@@ -225,7 +236,7 @@ def min_conv_properties_fused(dat, tables=None):
            'lapse_rate_700_500': lapse, 'temp_500': temp_500,
            'freezing_level': flh, 'melting_level': mlh}
     out.update(_shear(dat))
-    return out
+    return annotate(out) if with_attrs else out
 
 
 #: The ``conv_properties_fused`` outputs that :func:`storm_proxies` reads.
@@ -236,10 +247,11 @@ STORM_PROXY_INPUTS = (
     'shear_magnitude', 'positive_shear')
 
 
-def storm_proxies(dat):
+def storm_proxies(dat, with_attrs=False):
     """Literature storm-proxy booleans and the significant hail parameter
     from a ``conv_properties_fused`` output dict (the keys read are
-    :data:`STORM_PROXY_INPUTS`)."""
+    :data:`STORM_PROXY_INPUTS`).  ``with_attrs`` as in
+    :func:`conv_properties`."""
     s06 = dat['shear_magnitude']
     m100 = torch.where(dat['mixed_100_cape'] >= 0, dat['mixed_100_cape'],
                        torch.nan)
@@ -271,4 +283,4 @@ def storm_proxies(dat):
         shear=s06, flh=dat['freezing_level'])
     out['ship'] = ship
     out['proxy_SHIP_0.1'] = ship > 0.1
-    return out
+    return annotate(out) if with_attrs else out

@@ -32,9 +32,9 @@ Typical use::
     proxies = parcel.storm_proxies(out)
 
 The Dataset pipelines take ``stream_columns=`` to process a grid in column
-chunks (``parallel.stream_map``).  The JAX package's ``mesh=`` argument and
-its ``serve`` entry point (several devices; ahead-of-time artifacts) have
-no counterpart here yet.
+chunks (``parallel.stream_map``) and ``mesh=`` to shard its columns over
+several devices (``parallel.make_mesh``), alone or together; :func:`serve`
+runs a Dataset through a deployment artifact (``deploy.export_pipeline``).
 """
 
 import functools
@@ -51,14 +51,16 @@ from . import parcels as _parcels
 from . import pipeline as _pipeline
 from . import profile as _profile
 from . import thermo as _thermo
-from ._device import resolve_device
+from ._device import resolve_device, to_tensor
 from .adiabat import load_moist_adiabat_lookups  # noqa: F401  (re-export)
 from .api import (interp1d_numba, lookup_tables_loaded,  # noqa: F401
                   moist_adiabat_lookup, moist_adiabat_tables, round_to)
 from .fieldset import attrs_for
 from .fused import fused_surface_cape_cin
 from .lcl import lcl as _lcl
-from .parallel import stream_map
+from .parallel import (pad_batch, replicate, shard_batch, sharded_map,
+                       stream_map)
+from .parallel.mesh import check_device_in_mesh
 
 try:
     import xarray as xr
@@ -90,10 +92,7 @@ def to_device(x, device):
         return type(x)(to_device(v, device) for v in x)
     if x is None or np.isscalar(x):
         return x
-    x = np.asarray(x)
-    if not x.flags.writeable or not x.flags.c_contiguous:
-        x = np.ascontiguousarray(x)     # also unshares a broadcast view
-    return torch.from_numpy(x).to(device)
+    return to_tensor(x, device)
 
 
 def to_host(x):
@@ -304,15 +303,24 @@ def _rename(ds_dict, prefix, keys):
             for k, v in ds_dict.items()}
 
 
-def from_dataset(dat, vert_dim=DEFAULT_VERT_DIM, variables=None,
+def from_dataset(dat, vert_dim=DEFAULT_VERT_DIM, variables=None, mesh=None,
                  dtype=np.float32):
-    """Lower a Dataset to a dict of host arrays (vertical dim trailing).
+    """Lower a Dataset to a dict of arrays (vertical dim trailing).
 
     Returns ``(fields, batch_dims)`` where ``batch_dims`` is the ordered
     tuple of non-vertical dims (used by :func:`to_dataset` to lift results
     back).  Float variables are converted to ``dtype`` (float32 by
-    default, through the ``native`` repacks); a variable that carries only
-    some of the batch dims keeps its own size (:func:`_subset_align`).
+    default, through the ``native`` repacks).  Without ``mesh`` the fields
+    are host (numpy) arrays, and a variable that carries only some of the
+    batch dims keeps its own size (:func:`_subset_align`).  With ``mesh``
+    they are ``parallel.Sharded`` over its first axis, every variable
+    broadcast to the full batch first; the mesh size must then divide the
+    leading batch dim, because this function returns fields at the
+    input's batch shape.  The pipeline entry points
+    (``conv_properties(dat, mesh=...)`` etc.) accept any grid: they pad,
+    shard, compute and slice, as does streaming (``stream_columns=`` with
+    ``mesh=``).  For direct use on a grid that does not divide, pad with
+    ``parallel.pad_batch`` first and slice the results yourself.
     """
     names = variables or [v for v in _LEVEL_VARS + _SURFACE_VARS if v in dat]
     if not names:
@@ -346,6 +354,25 @@ def from_dataset(dat, vert_dim=DEFAULT_VERT_DIM, variables=None,
             v = native.repack_to_f32(
                 np.asarray(da.transpose(*order, *trail).values))
         fields[name] = _subset_align(v, order, batch_dims)
+
+    if mesh is not None:
+        if not batch_dims:
+            raise ValueError(
+                'mesh= needs at least one non-vertical (batch) dim to '
+                'shard — a single-column Dataset would shard its LEVEL '
+                'axis across devices')
+        # Subset-dim variables must cover the full batch before the
+        # leading axis is sharded, or a non-batch axis would be split.
+        fields = _broadcast_fields(fields, *_batch_shape_of(
+            fields, dat, batch_dims, vert_dim))
+        lead = next(iter(fields.values())).shape[0]
+        if lead % mesh.devices.size:
+            raise ValueError(
+                f'mesh size {mesh.devices.size} does not divide the leading '
+                f'batch dim {lead}; the pipeline entry points '
+                f'(conv_properties(dat, mesh=...)) pad automatically, or '
+                f'pad via parallel.pad_batch before from_dataset')
+        fields = shard_batch(fields, mesh, batch_dims=1)
     return fields, batch_dims
 
 
@@ -403,20 +430,40 @@ _PIPELINE_DOC_EXTRA = """Dataset-surface extras: ``device`` (None: the \
 GPU); ``dtype``, the floating type the inputs are lowered to (float32 by \
 default); ``stream_columns`` processes the grid out-of-core in chunks of \
 that many columns, whose transfers overlap the compute (see \
-``parallel.stream_map``)."""
+``parallel.stream_map``); ``mesh`` shards the grid's columns over the \
+mesh's devices (any grid: padded, sharded, computed and sliced), and with \
+``stream_columns`` as well each chunk is sharded, so that grids larger \
+than one device's memory stream through all devices.  With ``mesh`` its \
+devices are where the work runs: ``device`` must be None or one of them."""
 
 
-def _run_columns(run, dat, vert_dim, variables, dtype, stream_columns,
-                 device):
-    """Lower ``variables`` of ``dat``, run the column program ``run`` (dict
-    of (B, L)/(B,) tensors -> dict of (B, …) tensors) on ``device``, whole
-    or streamed, and lift the outputs to a Dataset."""
+def _run_columns(core, tables, dat, vert_dim, variables, dtype,
+                 stream_columns, device, mesh=None):
+    """Lower ``variables`` of ``dat``, run the column program ``core``
+    ((dict of (B, L)/(B,) tensors, tables) -> dict of (B, …) tensors) on
+    ``device`` or over ``mesh``, whole or streamed, and lift the outputs to
+    a Dataset.  ``tables``: the caller's argument (None: the default ones
+    for the device and ``dtype``)."""
+    if mesh is None:
+        device = resolve_device(device)
+        tables = _resolve_tables(tables, device, _torch_dtype(dtype))
+
+        def run(d):
+            return core(d, tables)
+    else:
+        check_device_in_mesh(device, mesh)
+        copies = replicate(_resolve_tables(
+            tables, mesh.local_devices()[0], _torch_dtype(dtype)), mesh)
+
+        def run(d):
+            return core(d, copies.on(next(iter(d.values())).device))
     fields, batch_dims = from_dataset(dat, vert_dim=vert_dim,
                                       variables=variables, dtype=dtype)
-    if stream_columns and not batch_dims:
+    if (mesh is not None or stream_columns) and not batch_dims:
         raise ValueError(
-            'stream_columns= needs at least one non-vertical (batch) dim: '
-            'a single-column Dataset would chunk its level axis')
+            'mesh=/stream_columns= need at least one non-vertical (batch) '
+            'dim — a single-column Dataset would chunk/shard its LEVEL '
+            'axis')
     batch_shape, vert_names = _batch_shape_of(fields, dat, batch_dims,
                                               vert_dim)
     if stream_columns:
@@ -424,7 +471,19 @@ def _run_columns(run, dat, vert_dim, variables, dtype, stream_columns,
         # fields are broadcast as views and copied chunk by chunk.
         fields = _broadcast_fields(fields, batch_shape, vert_names)
         out = stream_map(run, fields, batch_columns=stream_columns,
-                         level_vars=tuple(vert_names), device=device)
+                         level_vars=tuple(vert_names), device=device,
+                         mesh=mesh)
+    elif mesh is not None:
+        # Any grid shards: the flat column axis is padded to a mesh
+        # multiple on the host (NaN rows are inert), computed sharded, and
+        # the padding is sliced off again.
+        fields = _broadcast_fields(fields, batch_shape, vert_names)
+        flat, lead = pad_batch(
+            {k: v.reshape((-1,) + v.shape[len(batch_shape):])
+             for k, v in fields.items()}, mesh)
+        out = _grid({k: v.numpy()[:lead]
+                     for k, v in sharded_map(run, mesh)(flat).items()},
+                    batch_shape)
     else:
         # Subset-dim fields cross at their own size (a 1-D pressure
         # coordinate as L floats) and are broadcast on the device.
@@ -441,18 +500,17 @@ def _torch_dtype(dtype):
 
 def _dataset_pipeline(fn):
     @functools.wraps(fn)
-    def wrapper(dat, vert_dim=DEFAULT_VERT_DIM, tables=None,
+    def wrapper(dat, vert_dim=DEFAULT_VERT_DIM, tables=None, mesh=None,
                 stream_columns=None, device=None, dtype=np.float32,
                 **kwargs):
-        device = resolve_device(device)
         # The pipelines derive the dewpoint from specific humidity and
         # never read a provided 'dewpoint' variable: keep it out of the
         # ingest.
         use = [v for v in _LEVEL_VARS + _SURFACE_VARS
                if v != 'dewpoint' and v in dat]
-        tables = _resolve_tables(tables, device, _torch_dtype(dtype))
-        return _run_columns(lambda d: fn(d, tables=tables, **kwargs), dat,
-                            vert_dim, use, dtype, stream_columns, device)
+        return _run_columns(lambda d, tab: fn(d, tables=tab, **kwargs),
+                            tables, dat, vert_dim, use, dtype,
+                            stream_columns, device, mesh)
     wrapper.__doc__ = ((fn.__doc__ or '').rstrip() + '\n\n' +
                        _PIPELINE_DOC_EXTRA)
     return wrapper
@@ -463,6 +521,56 @@ conv_properties_fused = _dataset_pipeline(_pipeline.conv_properties_fused)
 min_conv_properties = _dataset_pipeline(_pipeline.min_conv_properties)
 min_conv_properties_fused = _dataset_pipeline(
     _pipeline.min_conv_properties_fused)
+
+
+def serve(dat, artifact, vert_dim=DEFAULT_VERT_DIM, tables=None, mesh=None):
+    """Run a Dataset through a deployment artifact
+    (``deploy.export_pipeline`` / ``deploy.load``): Dataset in, attributed
+    Dataset out, with neither a kernel build nor a table build in the
+    serving process.
+
+    ``artifact`` is a ``deploy.Deployed`` or a path to a saved one.  Any
+    grid shape works: batch dims flatten to the artifact's column axis
+    and the artifact pads/chunks onto its exported batch (sharding each
+    chunk when it was exported with ``mesh=``; pass ``mesh=`` here to
+    override the serving mesh).  The artifact's own device is where it
+    runs.
+    """
+    from . import deploy as _deploy
+    if not isinstance(artifact, _deploy.Deployed):
+        artifact = _deploy.load(artifact)
+    want = np.dtype(artifact.meta.get('dtype', 'float32'))
+    # The artifact's inputs are the fixed pipeline contract
+    # (deploy.input_spec): select exactly those variables before lowering
+    # (no full-grid repack of recognized ones it does not read, like the
+    # dewpoint) and fail missing ones by name.
+    kept, missing, _extra = artifact.check_inputs(
+        dict.fromkeys(getattr(dat, 'data_vars', dat)))
+    if missing:
+        raise ValueError(
+            f'Dataset is missing variables the artifact requires: '
+            f'{missing}')
+    names = [v for v in _LEVEL_VARS + _SURFACE_VARS if v in kept]
+    # Lower at the artifact's dtype: the default float32 repack would
+    # round the inputs of a float64 artifact.
+    fields, batch_dims = from_dataset(dat, vert_dim=vert_dim,
+                                      variables=names, dtype=want)
+    # A variable may carry only a subset of the batch dims (e.g.
+    # time-invariant surface winds on a time+lat+lon grid): broadcast to
+    # the full batch shape before flattening onto the column axis.
+    batch_shape, vert_names = _batch_shape_of(fields, dat, batch_dims,
+                                              vert_dim)
+    fields = _broadcast_fields(fields, batch_shape, vert_names)
+    flat = {k: v.reshape((-1,) + v.shape[len(batch_shape):])
+            for k, v in fields.items()}
+    # Tables go through unresolved: a full-table artifact loads those of
+    # its recorded dtype itself.  The outputs come to the host through the
+    # artifact's gatherer: an exact fit returns device tensors, sharded
+    # across processes under a mesh.
+    out = _grid(artifact._host(artifact(flat, tables=tables, mesh=mesh)),
+                batch_shape)
+    coords = {d: dat.coords[d] for d in batch_dims if d in dat.coords}
+    return to_dataset(out, batch_dims, coords=coords, vert_dim=vert_dim)
 
 
 def storm_proxies(conv, vert_dim=DEFAULT_VERT_DIM, device=None):
@@ -531,12 +639,11 @@ def surface_based_cape_cin_dataset(dat, vert_dim=DEFAULT_VERT_DIM,
     ``lcl_interp``, ``pos_cape_neg_cin``, ``post_zero_cin``) and
     ``with_lifted_index``.  ``device``, ``dtype`` and ``stream_columns`` as
     for the pipelines."""
-    device = resolve_device(device)
-    tables = _resolve_tables(tables, device, _torch_dtype(dtype))
     core = _fused_sb_core if fused else _modular_sb_core
-    return _run_columns(lambda d: core(d, tables=tables, **kwargs), dat,
-                        vert_dim, ['pressure', 'temperature', 'dewpoint'],
-                        dtype, stream_columns, device)
+    return _run_columns(lambda d, tab: core(d, tables=tab, **kwargs),
+                        tables, dat, vert_dim,
+                        ['pressure', 'temperature', 'dewpoint'], dtype,
+                        stream_columns, device)
 
 
 # ---------------------------------------------------------------------------
