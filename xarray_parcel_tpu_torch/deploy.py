@@ -21,9 +21,9 @@ So the artifact is a zip that takes both away:
   error: the library is then built as usual.
 
 :func:`load` returns a :class:`Deployed` callable.  Fixed-batch artifacts
-serve any grid size: inputs pad up to the exported batch (NaN for floats,
-which the pipelines turn into NaN outputs), run chunk by chunk, and slice
-back (the contract of ``parallel.chunked``).
+serve any grid size: inputs stream through in chunks of the exported batch,
+the last padded (NaN for floats, which the pipelines turn into NaN outputs)
+and sliced back (``parallel.stream_map``).
 
 What differs from the JAX module, on purpose:
 
@@ -64,8 +64,9 @@ import torch
 
 from . import _build, adiabat, pipeline
 from ._device import resolve_device, to_tensor
-from .parallel import Sharded, make_mesh, replicate, sharded_map
-from .parallel.chunked import _map_leaves, pad_fill
+from .parallel import (Sharded, make_mesh, replicate, sharded_map,
+                       stream_map)
+from .parallel.chunked import _map_leaves
 from .parallel.mesh import check_device_in_mesh
 
 _FORMAT = 'xarray-parcel-tpu-torch-exported-v1'
@@ -372,9 +373,10 @@ class Deployed:
     """A loaded/exported pipeline artifact: ``deployed(dat)`` runs it on
     its ``device`` (or its mesh).
 
-    Fixed-batch artifacts accept any leading batch size: inputs pad up to
-    a multiple of the exported batch (NaN for floats, zero otherwise) and
-    run chunk-by-chunk; padded rows are sliced off the outputs.
+    Fixed-batch artifacts accept any leading batch size: the inputs stream
+    through in chunks of the exported batch (``parallel.stream_map``: the
+    last one padded, NaN for floats, zero otherwise; padded rows are sliced
+    off the outputs).
     """
 
     def __init__(self, fn, meta, embedded=None, device=None, library=None):
@@ -549,9 +551,8 @@ class Deployed:
 
     def __call__(self, dat, tables=None, mesh=None):
         """Serve one batch.  Exact-fit and polymorphic calls return device
-        tensors (``parallel.Sharded`` under a mesh); the pad/chunk path
-        returns host numpy arrays (outputs are read back chunk by
-        chunk)."""
+        tensors (``parallel.Sharded`` under a mesh); any other batch is
+        streamed in chunks and returns host numpy arrays."""
         if not dat:
             raise ValueError('empty input dict — nothing to serve')
         dat, missing, extra = self.check_inputs(dat)
@@ -619,26 +620,22 @@ class Deployed:
         if bex is None or b == bex:     # polymorphic, or an exact fit
             return self._run(dat, tab, mesh)
 
-        # Mismatched batch: pad and slice on the host.  Device-resident
-        # inputs take one transfer here; outputs come back as host arrays.
-        # The loop keeps one chunk in flight while the previous chunk's
-        # outputs read back, so the readback overlaps the compute.
-        dat = {k: _host_array(v) for k, v in dat.items()}
-        pad = (-b) % bex
-        if pad:
-            dat = {k: np.pad(v, [(0, pad)] + [(0, 0)] * (v.ndim - 1),
-                             constant_values=pad_fill(v.dtype))
-                   for k, v in dat.items()}
-        chunks, pending = [], None
-        for i in range((b + pad) // bex):
-            sl = {k: v[i * bex:(i + 1) * bex] for k, v in dat.items()}
-            out = self._run(sl, tab, mesh)
-            if pending is not None:
-                chunks.append(self._host(pending))
-            pending = out
-        chunks.append(self._host(pending))
-        return {k: np.concatenate([c[k] for c in chunks], axis=0)[:b]
-                for k in chunks[0]}
+        # Mismatched batch: streamed from the host in chunks of the
+        # exported batch (NaN-padded, sharded over the mesh), each chunk's
+        # copies in and out overlapping its neighbours' compute.  Outputs
+        # come back as host arrays.
+        kwargs = self.meta.get('kwargs') or {}
+
+        def run(chunk):
+            here = next(iter(chunk.values())).device
+            return dict(self.fn(
+                chunk, tables=tab if mesh is None else tab.on(here),
+                **kwargs))
+
+        return stream_map(
+            run, {k: _host_array(v) for k, v in dat.items()},
+            batch_columns=bex, level_vars=('pressure',),
+            device=self.device if mesh is None else None, mesh=mesh)
 
 
 def _read_meta(path):

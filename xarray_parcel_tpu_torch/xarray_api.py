@@ -531,9 +531,9 @@ def serve(dat, artifact, vert_dim=DEFAULT_VERT_DIM, tables=None, mesh=None):
 
     ``artifact`` is a ``deploy.Deployed`` or a path to a saved one.  Any
     grid shape works: batch dims flatten to the artifact's column axis
-    and the artifact pads/chunks onto its exported batch (sharding each
-    chunk when it was exported with ``mesh=``; pass ``mesh=`` here to
-    override the serving mesh).  The artifact's own device is where it
+    and the artifact streams them in chunks of its exported batch
+    (sharding each chunk when it was exported with ``mesh=``; pass
+    ``mesh=`` here to override the serving mesh).  The artifact's own device is where it
     runs.
     """
     from . import deploy as _deploy
