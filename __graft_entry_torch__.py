@@ -21,18 +21,21 @@ def _synthetic_columns(batch_shape, L=90, dtype=np.float32, seed=0):
     return (p.astype(dtype), t.astype(dtype), td.astype(dtype))
 
 
-def entry(device=None):
+def entry(device=None, tables=None):
     """(fn, example_args): a forward step on the flagship path, the fused
     surface-based CAPE/CIN solve (the CUDA kernel on the GPU, its plain
     twin on ``device='cpu'``), and 256 example columns of 90 levels on
-    ``device`` (None: the GPU)."""
+    ``device`` (None: the GPU).  ``tables``: the adiabat tables (None: the
+    defaults, built on ``device`` when nothing is loaded)."""
     import torch
 
     from xarray_parcel_tpu_torch import adiabat, fused
     from xarray_parcel_tpu_torch._device import resolve_device
 
     device = resolve_device(device)
-    tables = adiabat.default_tables(device, torch.float32)
+    if tables is None:
+        tables = adiabat.default_tables(device, torch.float32)
+    tables = tables.astype(torch.float32).to(device)
 
     def fn(pressure, temperature, dewpoint, tables):
         res, _ = fused.fused_surface_cape_cin(pressure, temperature,
@@ -45,7 +48,7 @@ def entry(device=None):
     return fn, example_args
 
 
-def dryrun_multichip(n_devices: int) -> None:
+def dryrun_multichip(n_devices: int, tables=None) -> None:
     """One full pipeline step over an ``n_devices``-way mesh on the host.
 
     Uses the real sharding layout: batch (columns) data-parallel over the
@@ -56,6 +59,8 @@ def dryrun_multichip(n_devices: int) -> None:
     streamed in sharded chunks: booleans and NaN patterns equal, float32
     values to rtol 2e-5 / atol 2e-4 (on the CPU a shard's shape picks
     other vector paths than the whole batch's, so the last bits differ).
+    ``tables``: the adiabat tables (None: the defaults, built on the CPU
+    when nothing is loaded, which takes minutes there).
     """
     import torch
 
@@ -65,7 +70,9 @@ def dryrun_multichip(n_devices: int) -> None:
                                                   sharded_map, stream_map)
 
     mesh = make_mesh(['cpu'] * n_devices)
-    tables = replicate(adiabat.default_tables('cpu', torch.float32), mesh)
+    if tables is None:
+        tables = adiabat.default_tables('cpu', torch.float32)
+    tables = replicate(tables.astype(torch.float32).to('cpu'), mesh)
 
     B, L = 4 * n_devices + 3, 32
     p, t, td = _synthetic_columns((B,), L=L, seed=1)

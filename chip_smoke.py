@@ -41,13 +41,20 @@ its ``PATH``, nor a table cache, then loaded here and called on device
 tensors and on host arrays (streamed in chunks), and ``xarray_api.serve``
 on the Dataset (phase 13); and the C++ ingest against its numpy form with
 both times, and ``utils.columns_per_second`` against phase 5's rate (phase
-14).  Each phase prints one line; the last two lines are the kernel record
-and the result line.
+14).  Last, the JAX package's acceptance tiers through both kernels (phase
+15): every tier grid in float64 at the tiers' sizes equal to the plain
+twins on the CPU and to the card's modular path, with its launch counts,
+and held to the serial oracle (``tests/serial_oracle.py``) under the tiers'
+tolerances and filters; the sweep's adversarial classes in float32 at full
+width within the float32 budget, with their rate and kernel times.  Each
+phase prints one line; the last two lines are the kernel record and the
+result line.
 
 Exits non-zero, with no result line, when there is no CUDA device or when
 any check fails.  Imports nothing of JAX.
 """
 
+import functools
 import json
 import os
 import socket
@@ -62,7 +69,7 @@ import torch.distributed as dist
 
 import xarray_parcel_tpu_torch as xt
 from xarray_parcel_tpu_torch import (_build, adiabat, deploy, fused, native,
-                                     parallel, parcels, utils)
+                                     parallel, parcels, thermo, utils)
 from xarray_parcel_tpu_torch import diagnostics as diag
 from xarray_parcel_tpu_torch import xarray_api as xapi
 from xarray_parcel_tpu_torch.lcl import lcl
@@ -330,6 +337,662 @@ def lane_edge_tail_columns(n, L=LEVELS, seed=23):
     return p, t, td, h
 
 
+# --- The JAX package's acceptance-tier inputs, with numpy only ----------------
+# Copies of the generators of tests/test_integration_serial.py (make_grid),
+# tests/test_pipeline_fuzz.py (the sweep's five classes, winds included),
+# tests/test_multicross_fuzz.py (zigzag soundings and the selection of both
+# sets), tests/test_nan_fuzz.py and tests/test_pathological.py, for the
+# card's machine, which has no JAX.  tests/test_torch_tier_inputs.py holds
+# each equal to the JAX test module's own; phase 15 runs them through the
+# kernels, and the tier files tests/test_torch_*.py through the port on the
+# CPU, with the comparisons below.
+
+SWEEP_CASES = ('dup_pressure', 'interior_nan', 'near_envelope',
+               'deep_depression', 'combined')
+SWEEP_N, SWEEP_L = 12, 48
+MULTICROSS_L = 44
+PATHOLOGICAL_L = 40
+SWEEP_PROBES = (('mu', 'mu'), ('m100', 'mixed_100'), ('m50', 'mixed_50'))
+
+
+def serial_oracle():
+    """The repo's serial per-column oracle, ``tests/serial_oracle.py``
+    (numpy and scipy only)."""
+    folder = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'tests')
+    if folder not in sys.path:
+        sys.path.insert(0, folder)
+    import serial_oracle
+    return serial_oracle
+
+
+def make_grid(ny=8, nx=8, L=48, seed=7):
+    """Convectively active (ny, nx, L) float64 soundings (p, t, td): moist
+    near the surface, drying aloft."""
+    rng = np.random.default_rng(seed)
+    p = np.linspace(1012.0, 150.0, L)
+    p = np.broadcast_to(p, (ny, nx, L)) + rng.normal(0, 0.5, (ny, nx, L))
+    p = -np.sort(-p, axis=-1)
+    t = 303.0 - 78.0 * (1.0 - (p / 1012.0) ** 0.31) + rng.normal(
+        0, 2.0, (ny, nx, L))
+    depression = (np.abs(rng.normal(1.5, 1.5, (ny, nx, L))) + 0.2 +
+                  18.0 * (1.0 - p / 1012.0) ** 2)
+    td = t - depression
+    return p, t, td
+
+
+def sweep_mutate(case, p, t, td, rng):
+    """One adversarial class of the pipeline sweep, in place on (B, L)
+    columns: duplicated levels, interior NaN runs, near-saturated or
+    deep-depression launches, or all three on one grid."""
+    L = p.shape[-1]
+    if case == 'dup_pressure':
+        for j in range(p.shape[0]):
+            for k in rng.choice(np.arange(4, L - 6), rng.integers(1, 4),
+                                replace=False):
+                p[j, k + 1] = p[j, k]
+        p[:] = -np.sort(-p, axis=-1)
+    elif case == 'interior_nan':
+        # Mostly high in the column (above the typical EL); a couple of
+        # low runs.
+        for j in range(p.shape[0]):
+            if j % 3 == 2:
+                continue
+            k = int(rng.integers(5, 12) if j in (1, 4)
+                    else rng.integers(34, L - 8))
+            w = int(rng.integers(2, 5))
+            p[j, k:k + w] = t[j, k:k + w] = td[j, k:k + w] = np.nan
+    elif case == 'near_envelope':
+        depr = rng.uniform(0.01, 0.5, p.shape[0])
+        td[:, 0] = t[:, 0] - depr
+        td[:, 1] = np.minimum(td[:, 1], td[:, 0])
+    elif case == 'deep_depression':
+        depr = rng.uniform(9.0, 15.0, p.shape[0])
+        td[:, 0] = t[:, 0] - depr
+        td[:, 1:6] = np.minimum(td[:, 1:6], (td[:, 0] - 1.0)[:, None])
+    elif case == 'combined':
+        for j in range(p.shape[0]):
+            if j % 3 == 0:
+                k = int(rng.integers(4, L - 6))
+                p[j, k + 1] = p[j, k]
+            elif j % 3 == 1:
+                k = int(rng.integers(34, L - 8))
+                w = int(rng.integers(2, 5))
+                p[j, k:k + w] = t[j, k:k + w] = td[j, k:k + w] = np.nan
+            else:
+                td[j, 0] = t[j, 0] - float(rng.uniform(9.0, 15.0))
+                td[j, 1:6] = np.minimum(td[j, 1:6], td[j, 0] - 1.0)
+        for j in range(0, p.shape[0], 3):
+            p[j] = -np.sort(-p[j])
+    else:
+        raise ValueError(f'unknown sweep class {case!r}')
+    return p, t, td
+
+
+def sweep_columns(case, n=SWEEP_N, L=SWEEP_L, seed=None):
+    """The pipeline sweep's inputs for one class, as its fixture makes
+    them: float64 (B, L) p, t and surface-route dewpoint td0, heights h and
+    the winds.  ``seed`` defaults to the sweep's (400 + the class's
+    index)."""
+    if seed is None:
+        seed = 400 + SWEEP_CASES.index(case)
+    rng = np.random.default_rng(seed)
+    p, t, td0 = (v[0].copy() for v in make_grid(ny=1, nx=n, L=L, seed=seed))
+    p, t, td0 = sweep_mutate(case, p, t, td0, rng)
+    h = 44330.0 * (1.0 - (np.where(np.isnan(p), 500.0, p)
+                          / 1013.25) ** 0.19)
+    h = np.where(np.isnan(p), np.nan, h)
+    winds = {
+        'surface_wind_u': rng.normal(3, 2, (n,)),
+        'surface_wind_v': rng.normal(0, 2, (n,)),
+        'wind_u': rng.normal(8, 5, (n, L)),
+        'wind_v': rng.normal(2, 5, (n, L)),
+        'wind_height_above_surface': np.broadcast_to(
+            np.linspace(0.0, 16000.0, L), (n, L)).copy(),
+    }
+    return p, t, td0, h, winds
+
+
+def sweep_inputs(p, t, td0, h, winds, dtype=torch.float64, device='cpu'):
+    """The pipeline's input dict of tensors for :func:`sweep_columns`, and
+    the dewpoint the pipeline derives from its specific humidity (numpy),
+    which the oracle is fed so that both sides lift identical parcels."""
+    def put(x):
+        return torch.as_tensor(np.ascontiguousarray(x), dtype=dtype,
+                               device=device)
+    pp, tt = put(p), put(t)
+    q = thermo.specific_humidity_from_dewpoint(pp, put(td0))
+    td = thermo.dewpoint_from_specific_humidity(pp, tt, q)
+    dat = {'pressure': pp, 'temperature': tt, 'specific_humidity': q,
+           'height_asl': put(h), **{k: put(v) for k, v in winds.items()}}
+    return dat, td.cpu().numpy().astype(np.float64)
+
+
+def sweep_vector(dat, **kw):
+    """``conv_properties(dat, ignore_nans=True, **kw)`` with the probes the
+    sweep's filters read: each variant's LFC and EL (``_mu_lfc``, ...) and
+    the most-unstable launch pressure, as numpy arrays."""
+    out = dict(xt.conv_properties(dat, ignore_nans=True, **kw))
+    p, t = dat['pressure'], dat['temperature']
+    dew = thermo.dewpoint_from_specific_humidity(p, t,
+                                                 dat['specific_humidity'])
+    _, mu_prof, mu_parcel = parcels.most_unstable_cape_cin(p, t, dew,
+                                                           depth=250.0, **kw)
+    _, m100, _ = parcels.mixed_layer_cape_cin(p, t, dew, depth=100.0, **kw)
+    _, m50, _ = parcels.mixed_layer_cape_cin(p, t, dew, depth=50.0, **kw)
+    for name, prof in (('mu', mu_prof), ('m100', m100), ('m50', m50)):
+        out[f'_{name}_lfc'] = prof['lfc_pressure']
+        out[f'_{name}_el'] = prof['el_pressure']
+    out['_mu_parcel_pressure'] = mu_parcel['pressure']
+    return {k: v.detach().cpu().numpy() for k, v in out.items()}
+
+
+def sweep_serial(p, t, td, h, winds):
+    """The serial oracle's answers for the sweep's variables, per column of
+    the dropna'd column (the oracle's semantics)."""
+    oracle = serial_oracle()
+    n = p.shape[0]
+    keys = [f'{v}_{x}' for v, _ in SWEEP_PROBES
+            for x in ('cape', 'cin', 'lfc', 'el', 'li', 'dci')]
+    keys += ['mu_parcel_pressure', 'lapse', 't500', 'flh', 'mlh',
+             'shear_u', 'shear_v', 'shear_magnitude']
+    ser = {k: np.full((n,), np.nan) for k in keys}
+    for j in range(n):
+        keep = ~np.isnan(p[j])
+        pc, tc, tdc, hc = p[j][keep], t[j][keep], td[j][keep], h[j][keep]
+        mu = oracle.most_unstable_cape_cin_column(pc, tc, tdc, depth=250.0)
+        m100 = oracle.mixed_layer_cape_cin_column(pc, tc, tdc, depth=100.0)
+        m50 = oracle.mixed_layer_cape_cin_column(pc, tc, tdc, depth=50.0)
+        ser['mu_parcel_pressure'][j] = mu['parcel_pressure']
+        for name, res in (('mu', mu), ('m100', m100), ('m50', m50)):
+            li = oracle.lifted_index_column(res)
+            for x in ('cape', 'cin', 'lfc', 'el'):
+                ser[f'{name}_{x}'][j] = res[x]
+            ser[f'{name}_li'][j] = li
+            ser[f'{name}_dci'][j] = oracle.dci_column(pc, tc, tdc, li)
+        ser['lapse'][j] = oracle.lapse_rate_column(pc, tc, hc)
+        ser['t500'][j] = oracle.isobar_temperature_column(pc, tc)
+        ser['flh'][j] = oracle.freezing_level_height_column(tc, hc)
+        ser['mlh'][j] = oracle.melting_level_height_fast_column(tc, tdc, hc)
+        sh = oracle.wind_shear_column(
+            winds['surface_wind_u'][j], winds['surface_wind_v'][j],
+            winds['wind_u'][j], winds['wind_v'][j],
+            winds['wind_height_above_surface'][j])
+        for k in ('shear_u', 'shear_v', 'shear_magnitude'):
+            ser[k][j] = sh[k]
+    return ser
+
+
+def sweep_records(p):
+    """Per-column records for the comparability filters: ``nan_pmax``, the
+    pressure of the valid level just below a NaN run (0 without NaN
+    levels), and ``dup_p``, each column's duplicated pressures."""
+    n = p.shape[0]
+    nan_pmax = np.zeros(n)
+    for j in range(n):
+        bad = np.isnan(p[j])
+        if bad.any():
+            below = np.flatnonzero(bad).min() - 1
+            nan_pmax[j] = p[j][below] if below >= 0 else np.inf
+    dup_p = [p[j][np.flatnonzero(np.diff(p[j]) == 0)] for j in range(n)]
+    return nan_pmax, dup_p
+
+
+def same_branch(a, b, tol=1.0):
+    """Both NaN, or both finite and within ``tol``."""
+    both_nan = np.isnan(a) & np.isnan(b)
+    both_fin = ~np.isnan(a) & ~np.isnan(b)
+    return both_nan | (both_fin & (np.abs(np.where(both_fin, a - b, 0.0))
+                                   < tol))
+
+
+def sweep_comparable(name, p, vec, ser, nan_pmax, dup_p):
+    """The sweep's columns where variant ``name`` ('mu', 'm100', 'm50') is
+    comparable with the oracle: the same parcel (most unstable), the same
+    LFC and EL branch, no NaN run inside the integration windows (the port
+    skips areas across a NaN gap, as the reference does, where the dropna
+    oracle bridges it), and neither the LFC, the EL nor the launch level on
+    a duplicated level (the knife edges of ROADMAP section C)."""
+    n = p.shape[0]
+    if name == 'mu':
+        same = np.abs(vec['_mu_parcel_pressure'] -
+                      ser['mu_parcel_pressure']) < 1e-6
+    else:
+        same = np.ones((n,), bool)
+    same = (same & same_branch(vec[f'_{name}_lfc'], ser[f'{name}_lfc'])
+            & same_branch(vec[f'_{name}_el'], ser[f'{name}_el']))
+    el_eff = np.where(np.isnan(ser[f'{name}_el']),
+                      np.array([np.nanmin(col) for col in p]),
+                      ser[f'{name}_el'])
+    same &= (nan_pmax == 0) | (nan_pmax < el_eff)
+    for j in range(n):
+        if len(dup_p[j]) and same[j]:
+            launch = (ser['mu_parcel_pressure'][j] if name == 'mu'
+                      else p[j][~np.isnan(p[j])][0])
+            edges = [ser[f'{name}_lfc'][j], ser[f'{name}_el'][j], launch]
+            if any(np.nanmin(np.abs(dup_p[j] - e)) < 1e-6
+                   for e in edges if np.isfinite(e)):
+                same[j] = False
+    return same
+
+
+def check_sweep_variant(what, name, vec, ser, same, tables=False):
+    """Hold variant ``name``'s CAPE, CIN, LI and DCI to the oracle on the
+    comparable columns ``same``: identical NaN patterns, and the sweep's
+    tolerances (1e-4 J/kg, 1e-5 K) for the exact-ODE backend.  With
+    ``tables`` (the spectral tables the fused solve reads) the values held
+    are the table tier's (``test_integration_serial``): CAPE within 1 J/kg,
+    or 1% above 100 J/kg."""
+    v = dict(SWEEP_PROBES)[name]
+    for var, key, tol in ((f'{v}_cape', f'{name}_cape', 1e-4),
+                          (f'{v}_cin', f'{name}_cin', 1e-4),
+                          (f'{v}_lifted_index', f'{name}_li', 1e-5),
+                          (f'{v}_dci', f'{name}_dci', 1e-5)):
+        a, b = vec[var][same], ser[key][same]
+        if not np.array_equal(np.isnan(a), np.isnan(b)):
+            raise AssertionError(f'{what}: {var} NaN pattern')
+        both = ~np.isnan(a)
+        if not both.any():
+            raise AssertionError(f'{what}: {var} all-NaN on comparable '
+                                 f'columns')
+        d = np.abs(a[both] - b[both])
+        if tables:
+            if not var.endswith('cape'):
+                continue
+            rel = d / np.maximum(np.abs(b[both]), 100.0)
+            d, tol = np.minimum(d, rel * 100.0), 1.0
+        if not d.max() < tol:
+            raise AssertionError(f'{what}: {var} max diff {d.max():.3e}')
+
+
+def check_sweep_scalars(what, vec, ser, nan_pmax):
+    """The sweep's scalar diagnostics against the oracle: NaN patterns on
+    NaN-free columns, values where both sides are finite (the
+    level-interpolating ones on NaN-free columns only: a bridged NaN gap
+    can hand the oracle another isotherm crossing), within 1e-6 (shear
+    1e-8), on at least a quarter of the columns."""
+    no_nan = nan_pmax == 0
+    for var, key, tol in (('lapse_rate_700_500', 'lapse', 1e-6),
+                          ('temp_500', 't500', 1e-6),
+                          ('freezing_level', 'flh', 1e-6),
+                          ('melting_level', 'mlh', 1e-6),
+                          ('shear_u', 'shear_u', 1e-8),
+                          ('shear_v', 'shear_v', 1e-8),
+                          ('shear_magnitude', 'shear_magnitude', 1e-8)):
+        a, b = vec[var], ser[key]
+        if not np.array_equal(np.isnan(a[no_nan]), np.isnan(b[no_nan])):
+            raise AssertionError(f'{what}: {var} NaN pattern')
+        both = ~np.isnan(a) & ~np.isnan(b)
+        if not var.startswith('shear'):
+            both = both & no_nan
+        if not both.mean() > 0.25:
+            raise AssertionError(f'{what}: {var} barely comparable')
+        d = np.abs(a[both] - b[both])
+        if not d.max() < tol:
+            raise AssertionError(f'{what}: {var} max diff {d.max():.3e}')
+
+
+def zigzag_column(rng, depression=(1.0, 6.0), L=MULTICROSS_L):
+    """One sounding whose environment oscillates around the parcel's own
+    track (the oracle's physics), with ``depression`` bounding the surface
+    dewpoint depression: (p, t_env, td_env, t0, td0)."""
+    oracle = serial_oracle()
+    p = np.linspace(1009.0, 190.0, L) + rng.normal(0, 0.4, L)
+    p = -np.sort(-p)
+    t0 = 295.0 + rng.uniform(-4.0, 6.0)
+    td0 = t0 - rng.uniform(*depression)
+    lcl_p, lcl_t = oracle.lcl(p[0], t0, td0)
+    track = np.where(p >= lcl_p, oracle.dry_lapse(p, t0, p[0]),
+                     oracle.moist_lapse(p, lcl_t, lcl_p))
+    n_waves = rng.integers(2, 5)
+    phase = rng.uniform(0, 2 * np.pi)
+    amp = rng.uniform(1.2, 3.0)
+    x = np.linspace(0, n_waves * np.pi, L)
+    t_env = track + amp * np.sin(x + phase) + rng.normal(0, 0.08, L)
+    td_env = t_env - (np.abs(rng.normal(2.0, 1.5, L)) + 0.3)
+    return p, t_env, td_env, t0, td0
+
+
+def _crossings(res):
+    """(pressure, direction) of every crossing of the oracle's spliced
+    real-temperature tracks."""
+    pp, d = res['pp'], res['parcel_t'] - res['env_t']
+    lx = np.log(pp)
+    out = []
+    for i in range(len(pp) - 1):
+        if np.sign(d[i]) != np.sign(d[i + 1]):
+            cx = (d[i + 1] * lx[i] - d[i] * lx[i + 1]) / (d[i + 1] - d[i])
+            out.append((float(np.exp(cx)), 1 if d[i + 1] > 0 else -1))
+    return out
+
+
+def crossing_stats(res):
+    """(#increasing, #decreasing, least gap between two crossings)."""
+    xs = _crossings(res)
+    inc = sum(1 for _, s in xs if s > 0)
+    gap = (np.min(np.diff(np.sort([x for x, _ in xs]))) if len(xs) > 1
+           else np.inf)
+    return inc, len(xs) - inc, float(gap)
+
+
+def increasing_crossings(res):
+    """Pressures of all increasing crossings (before the above-LCL
+    exclusion)."""
+    return [x for x, s in _crossings(res) if s > 0]
+
+
+@functools.lru_cache(maxsize=None)
+def multicross_set(kind):
+    """The multicross fuzz's columns and their oracle answers
+    (``cape_cin_column`` without the virtual-temperature correction):
+    'base', 24 zigzag columns with >= 2 increasing and decreasing crossings
+    >= 8 hPa apart; 'deep', 8 high-LCL columns where the oracle's LFC is
+    not the bottom-most increasing crossing (the exclusion and LCL
+    substitution rules decided it)."""
+    oracle = serial_oracle()
+    deep = kind == 'deep'
+    rng = np.random.default_rng(20260821 if deep else 20260820)
+    want, tries = (8, 300) if deep else (24, 400)
+    cols, serial = [], []
+    attempts = 0
+    while len(cols) < want and attempts < tries:
+        attempts += 1
+        p, t, td, t0, td0 = zigzag_column(
+            rng, **(dict(depression=(9.0, 15.0)) if deep else {}))
+        res = oracle.cape_cin_column(p, t, td, p[0], t0, td0,
+                                     virtual_temperature_correction=False)
+        inc, dec, gap = crossing_stats(res)
+        if inc < 2 or gap < 8.0 or (dec < 2 and not deep):
+            continue
+        if deep:
+            inc_x = increasing_crossings(res)
+            if not (np.isnan(res['lfc'])
+                    or abs(res['lfc'] - max(inc_x)) > 1.0):
+                continue
+        cols.append((p, t, td, t0, td0))
+        serial.append(res)
+    if len(cols) != want:
+        raise AssertionError(f'multicross {kind}: only {len(cols)} columns '
+                             f'in {attempts}')
+    return cols, serial
+
+
+def stack_columns(cols):
+    """(p, t, td, t0, td0) arrays of a multicross set's columns."""
+    return tuple(np.stack([c[i] for c in cols]) for i in range(3)) + tuple(
+        np.array([c[i] for c in cols]) for i in (3, 4))
+
+
+def check_multicross(what, serial, cape, cin, lfc, el, keep=None):
+    """The multicross tier's comparison: per column, LFC and EL NaN with
+    the oracle's or within 1 hPa, CAPE and CIN within 1.5 J/kg.
+    ``keep``: the columns compared (default all)."""
+    for i, s in enumerate(serial):
+        if keep is not None and not keep[i]:
+            continue
+        for name, v, sv in (('lfc', lfc[i], s['lfc']), ('el', el[i], s['el'])):
+            if np.isnan(sv):
+                if not np.isnan(v):
+                    raise AssertionError(f'{what} col {i} {name}: {v} vs '
+                                         f'serial NaN')
+            elif not abs(v - sv) < 1.0:
+                raise AssertionError(f'{what} col {i} {name}: {v} vs {sv}')
+        for name, v, sv in (('cape', cape[i], s['cape']),
+                            ('cin', cin[i], s['cin'])):
+            if not abs(v - sv) < 1.5:
+                raise AssertionError(f'{what} col {i} {name}: {v} vs {sv}')
+
+
+def nan_fuzz_grid(seed, B=64, L=32):
+    """The NaN fuzz's float64 (B, L) p, t, td: top padding, interior NaN
+    temperatures and dewpoints, all-NaN columns and a NaN surface
+    temperature, by column modulo 6."""
+    rng = np.random.default_rng(seed)
+    p = np.linspace(1008.0, 200.0, L)
+    p = np.broadcast_to(p, (B, L)) + rng.normal(0, 0.3, (B, L))
+    p = -np.sort(-p, axis=-1)
+    t = 301.0 - 72.0 * (1.0 - (p / 1008.0) ** 0.3) + rng.normal(
+        0, 2, (B, L))
+    td = t - np.abs(rng.normal(4, 4, (B, L))) - 0.2
+    for i in range(B):
+        mode = i % 6
+        if mode == 1:
+            n = rng.integers(1, L // 2)
+            p[i, L - n:] = t[i, L - n:] = td[i, L - n:] = np.nan
+        elif mode == 2:
+            t[i, rng.choice(L, rng.integers(1, 5), replace=False)] = np.nan
+        elif mode == 3:
+            td[i, rng.choice(L, rng.integers(1, 5), replace=False)] = np.nan
+        elif mode == 4:
+            p[i] = t[i] = td[i] = np.nan
+        elif mode == 5:
+            t[i, 0] = np.nan
+    return p, t, td
+
+
+def all_nan_grid():
+    """The NaN fuzz's all-NaN (8, 16) grid."""
+    return np.full((8, 16), np.nan)
+
+
+def pathological_grid():
+    """Nine degenerate but valid float64 columns of 40 levels: saturated
+    from the surface, saturated at the surface only, isothermal, a strong
+    inversion (no LFC), very cold near the table's edge, four valid levels
+    under NaN padding, a superadiabatic surface layer, an 8-level run
+    1e-3 hPa apart and a moist tropical column."""
+    L = PATHOLOGICAL_L
+
+    def base():
+        p = np.linspace(1005.0, 180.0, L)
+        t = 300.0 - 70.0 * (1.0 - (p / 1005.0) ** 0.3)
+        return p, t, t - 6.0
+
+    cols = []
+    p, t, _ = base()
+    cols.append((p, t, t.copy()))
+    p, t, td = base()
+    td = td.copy()
+    td[0] = t[0]
+    cols.append((p, t, td))
+    p, _, _ = base()
+    t = np.full(L, 263.0)
+    cols.append((p, t, t - 8.0))
+    p, _, _ = base()
+    t = 250.0 + 40.0 * (1.0 - p / 1005.0)
+    cols.append((p, t, t - 10.0))
+    p, _, _ = base()
+    t = 218.0 - 25.0 * (1.0 - (p / 1005.0) ** 0.3)
+    cols.append((p, t, t - 3.0))
+    p, t, td = (x.copy() for x in base())
+    p[4:] = t[4:] = td[4:] = np.nan
+    cols.append((p, t, td))
+    p, t, td = base()
+    t = t.copy()
+    t[0] += 12.0
+    cols.append((p, t, td))
+    p, t, td = base()
+    p = p.copy()
+    k = np.argmin(np.abs(p - 700.0))
+    p[k:k + 8] = p[k] - 1e-3 * np.arange(8)
+    p = -np.sort(-p)
+    cols.append((p, t, td))
+    p, _, _ = base()
+    t = 304.0 * (p / 1005.0) ** 0.19
+    cols.append((p, t, t - 1.0))
+    return tuple(np.stack([c[i] for c in cols]) for i in range(3))
+
+
+def pathological_dataset(p, t, td):
+    """The pipeline's float64 numpy inputs for :func:`pathological_grid`:
+    specific humidity from the dewpoint, heights and seeded winds."""
+    e = 6.112 * np.exp(17.67 * (td - 273.15) / (td - 29.65))
+    w = 0.6219569100577033 * e / (p - e)
+    q = w / (1.0 + w)
+    h = 44330.0 * (1.0 - (np.where(np.isnan(p), 500.0, p) / 1013.25) ** 0.19)
+    B, L = p.shape
+    rng = np.random.default_rng(7)
+    return {
+        'pressure': p, 'temperature': t, 'specific_humidity': q,
+        'height_asl': h,
+        'surface_wind_u': rng.normal(3, 2, (B,)),
+        'surface_wind_v': rng.normal(0, 2, (B,)),
+        'wind_u': rng.normal(8, 5, (B, L)),
+        'wind_v': rng.normal(2, 5, (B, L)),
+        'wind_height_above_surface': h - h[..., :1],
+    }
+
+
+def exact_misses(what, want, got, rel=1e-10):
+    """Hold the outputs ``got`` to ``want`` (dicts of tensors or arrays
+    with the same keys, batch first): booleans and NaN patterns identical
+    (raises otherwise), and every float output within ``rel`` of its scale,
+    max(1, max |want|).  Returns ``{key: (max |diff|, its column)}`` of the
+    outputs over ``rel``."""
+    def host(x):
+        return (x.detach().cpu().numpy() if torch.is_tensor(x)
+                else np.asarray(x))
+    if set(want) != set(got):
+        raise AssertionError(f'{what}: outputs {sorted(got)} vs '
+                             f'{sorted(want)}')
+    misses = {}
+    for k in sorted(want):
+        a, b = host(want[k]), host(got[k])
+        if a.shape != b.shape:
+            raise AssertionError(f'{what}/{k}: shape {b.shape} vs {a.shape}')
+        if a.dtype == bool:
+            if not np.array_equal(a, b):
+                raise AssertionError(f'{what}/{k}: booleans differ in '
+                                     f'{int((a != b).sum())} columns')
+            continue
+        a, b = a.astype(np.float64), b.astype(np.float64)
+        if not np.array_equal(np.isnan(a), np.isnan(b)):
+            raise AssertionError(f'{what}/{k}: NaN patterns differ in '
+                                 f'{int((np.isnan(a) != np.isnan(b)).sum())} '
+                                 f'columns')
+        d = np.abs(np.nan_to_num(a) - np.nan_to_num(b))
+        scale = max(1.0, float(np.nanmax(np.abs(a)))
+                    if np.isfinite(a).any() else 1.0)
+        if d.size and d.max() > rel * scale:
+            misses[k] = (float(d.max()), int(d.reshape(-1).argmax()))
+    return misses
+
+
+# The tier grids phase 15 and the card tests run through the kernels: the
+# sweep's five classes and the pathological grid through both fused
+# pipelines; the multicross sets, the NaN fuzz, the all-NaN grid and
+# make_grid through the solve.
+TIER_GRIDS = tuple(f'sweep/{c}' for c in SWEEP_CASES) + (
+    'pathological', 'multicross/base', 'multicross/deep', 'nan_fuzz/0',
+    'nan_fuzz/1', 'nan_fuzz/2', 'all_nan', 'make_grid')
+SOL_KEYS = ('lfc_pressure', 'lfc_temperature', 'el_pressure',
+            'el_temperature')
+
+
+def tier_inputs(name, device, dtype=torch.float64):
+    """The inputs of tier grid ``name`` on ``device``: the pipeline's dict
+    for a sweep class and the pathological grid; else ``(p, t, td)``
+    (B, L) and, for the multicross sets, the parcel (p0, t0, td0)."""
+    def put(x):
+        return torch.as_tensor(np.ascontiguousarray(x), dtype=dtype,
+                               device=device)
+    kind, _, arg = name.partition('/')
+    if kind == 'sweep':
+        return sweep_inputs(*sweep_columns(arg), dtype=dtype,
+                            device=device)[0]
+    if kind == 'pathological':
+        return {k: put(v) for k, v in
+                pathological_dataset(*pathological_grid()).items()}
+    if kind == 'multicross':
+        p, t, td, t0, td0 = stack_columns(multicross_set(arg)[0])
+        return tuple(put(x) for x in (p, t, td, p[:, 0], t0, td0))
+    if kind == 'nan_fuzz':
+        return tuple(put(x) for x in nan_fuzz_grid(int(arg)))
+    if kind == 'all_nan':
+        return (put(all_nan_grid()),) * 3
+    if kind == 'make_grid':
+        return tuple(put(x.reshape(-1, x.shape[-1])) for x in make_grid())
+    raise ValueError(f'unknown tier grid {name!r}')
+
+
+def tier_paths(name):
+    """``[(label, kernel path, modular path, (solve, tail) launches)]`` of
+    tier grid ``name``: each path ``fn(inputs, tables)`` returns a dict of
+    (B,) outputs."""
+    kind = name.partition('/')[0]
+    if kind in ('sweep', 'pathological'):
+        kw = dict(ignore_nans=kind == 'sweep')
+        return [('conv_properties_fused',
+                 lambda d, tab: xt.conv_properties_fused(d, tables=tab, **kw),
+                 lambda d, tab: xt.conv_properties(d, tables=tab, **kw),
+                 (3, 1)),
+                ('min_conv_properties_fused',
+                 lambda d, tab: xt.min_conv_properties_fused(d, tables=tab),
+                 lambda d, tab: xt.min_conv_properties(d, tables=tab),
+                 (1, 1))]
+    if kind == 'multicross':
+        opts = dict(virtual_temperature_correction=False)
+
+        def solve(a, tab):
+            res, sol = xt.fused_cape_cin(
+                *a[:3], parcel_pressure=a[3], parcel_temperature=a[4],
+                parcel_dewpoint=a[5], tables=tab, **opts)
+            return {**res, **sol}
+
+        def modular(a, tab):
+            res, prof = xt.cape_cin(*a[:3], a[4], a[3], a[5], tables=tab,
+                                    **opts)
+            return {**res, **{k: prof[k] for k in SOL_KEYS}}
+        return [('fused_cape_cin', solve, modular, (1, 0))]
+
+    def surface(a, tab):
+        res, sol = xt.fused_surface_cape_cin(*a, tables=tab)
+        return {**res, **sol}
+
+    def modular(a, tab):
+        res, prof = xt.surface_based_cape_cin(*a, tables=tab)
+        return {**res, **{k: prof[k] for k in SOL_KEYS}}
+    return [('fused_surface_cape_cin', surface, modular, (1, 0))]
+
+
+def hold_tier(name, tables, device):
+    """Run tier grid ``name`` (float64) through the kernel path on
+    ``device``, with the launch counts asserted on a card, and hold it to
+    the plain twins on the CPU and to the modular path on ``device``:
+    identical NaN and boolean patterns, values within 1e-10 of each
+    output's scale, or, where only that fails, within ``F64_ATOL``.
+    Returns ``(outputs, notes, launches)``: each path's outputs as numpy
+    arrays, a line for every output held to ``F64_ATOL`` instead, naming
+    the column that shows it, and the (solve, tail) launches of the
+    kernel paths."""
+    cpu = torch.device('cpu')
+    cpu_tables = xt.AdiabatTables(tables.coeffs.to(cpu))
+    inputs = tier_inputs(name, device)
+    cpu_inputs = ({k: v.to(cpu) for k, v in inputs.items()}
+                  if isinstance(inputs, dict)
+                  else tuple(x.to(cpu) for x in inputs))
+    outs, notes, launches = {}, [], np.zeros(2, int)
+    for label, run, modular, counts in tier_paths(name):
+        fused.cape_cin_kernel.launches = diag.diag_kernel.launches = 0
+        got = run(inputs, tables)
+        seen = (fused.cape_cin_kernel.launches, diag.diag_kernel.launches)
+        if torch.device(device).type == 'cuda' and seen != counts:
+            raise AssertionError(f'{name}/{label}: (solve, tail) launches '
+                                 f'{seen}, want {counts}')
+        launches += seen
+        for ref_name, ref in (('CPU twins', run(cpu_inputs, cpu_tables)),
+                              ('modular', modular(inputs, tables))):
+            what = f'{name}/{label} vs {ref_name}'
+            for k, (d, col) in exact_misses(what, ref, got).items():
+                if not d <= F64_ATOL:
+                    raise AssertionError(f'{what}/{k}: max |diff| {d:.3g} '
+                                         f'(column {col}) over 1e-10 of '
+                                         f'scale and {F64_ATOL}')
+                notes.append(f'{what}/{k}: |diff| {d:.3g} at column {col}, '
+                             f'over 1e-10 of scale, within {F64_ATOL}')
+        outs[label] = {k: v.detach().cpu().numpy() for k, v in got.items()}
+    return outs, notes, tuple(int(n) for n in launches)
+
+
 def variant_columns(p, t, td):
     """Four parcel variants of the same columns -- surface, most unstable
     (NaN prefix below the parcel) and mixed 100 / 50 hPa (slot-written
@@ -550,6 +1213,143 @@ def wall_median(fn, repeats):
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
     return float(np.median(secs))
+
+
+def phase_tiers(dev, tab64, tab32, smi, solve_ms, tail_ms, pipeline_rate):
+    """Phase 15: the JAX package's acceptance tiers through the kernels.
+
+    Float64 at the tiers' sizes: every tier grid through the kernel path,
+    held to the CPU twins and the card's modular path (``hold_tier``), then
+    to the serial oracle under the tiers' tolerances and filters.  Float32
+    at full width: the five sweep classes at 90 levels, 65,540 distinct
+    columns tiled to ``MAIN_COLUMNS``, through ``conv_properties_fused``
+    against the card's modular path under the float32 budget, with the
+    pipeline's rate and each kernel's time on them beside the synthetic
+    columns' (``solve_ms``, ``tail_ms``, ``pipeline_rate``).  Logs the
+    phase's lines and returns the (solve, tail) launches of its kernel
+    paths."""
+    t0 = time.perf_counter()
+    held, notes, launches = {}, [], np.zeros(2, int)
+    for name in TIER_GRIDS:
+        held[name], more, seen = hold_tier(name, tab64, dev)
+        notes += more
+        launches += seen
+    for line in notes:
+        log(f'[15 note] {line}')
+    hold_s = time.perf_counter() - t0
+
+    # The oracle.  The multicross sets through the solve: the multicross
+    # tier's 1 hPa and 1.5 J/kg.
+    for kind in ('base', 'deep'):
+        out = held[f'multicross/{kind}']['fused_cape_cin']
+        check_multicross(f'15 multicross {kind}', multicross_set(kind)[1],
+                         out['cape'], out['cin'], out['lfc_pressure'],
+                         out['el_pressure'])
+    # make_grid's surface solve: the table tier's > 95% of columns on the
+    # same LFC branch, CAPE within 1 J/kg or 1% there.
+    oracle = serial_oracle()
+    grid = [x.reshape(-1, x.shape[-1]) for x in make_grid()]
+    ser = np.array([oracle.surface_cape_cin_column(*c) for c in zip(*grid)])
+    out = held['make_grid']['fused_surface_cape_cin']
+    branch = same_branch(out['lfc_pressure'], ser[:, 2])
+    d = np.abs(out['cape'] - ser[:, 0])[branch]
+    rel = d / np.maximum(np.abs(ser[:, 0])[branch], 100.0)
+    grid_err = float(np.nanmax(np.minimum(d, rel * 100.0)))
+    if not (branch.mean() > 0.95 and grid_err < 1.0):
+        raise AssertionError(f'15 make_grid: {branch.mean():.0%} on the '
+                             f'same branch, CAPE table error {grid_err:.3g}')
+    # Two sweep classes: the card's modular path with the exact ODE at the
+    # sweep's tolerances, and the fused pipeline at the table tier's (its
+    # scalar diagnostics, the tail's, at the sweep's), on the sweep's
+    # comparable columns.
+    comparable = {}
+    for case in ('dup_pressure', 'combined'):
+        p, t, td0, h, winds = sweep_columns(case)
+        dat, td = sweep_inputs(p, t, td0, h, winds, device=dev)
+        vec = sweep_vector(dat, moist_lapse=xt.moist_lapse_integrate)
+        ser = sweep_serial(p, t, td, h, winds)
+        nan_pmax, dup_p = sweep_records(p)
+        out = held[f'sweep/{case}']['conv_properties_fused']
+        comparable[case] = []
+        for name, _ in SWEEP_PROBES:
+            same = sweep_comparable(name, p, vec, ser, nan_pmax, dup_p)
+            if not same.mean() > 0.6:
+                raise AssertionError(f'15 sweep {case}/{name}: only '
+                                     f'{same.mean():.0%} comparable')
+            check_sweep_variant(f'15 sweep {case}', name, vec, ser, same)
+            check_sweep_variant(f'15 sweep {case} fused', name, out, ser,
+                                same, tables=True)
+            comparable[case].append(int(same.sum()))
+        check_sweep_scalars(f'15 sweep {case}', vec, ser, nan_pmax)
+        check_sweep_scalars(f'15 sweep {case} fused', out, ser, nan_pmax)
+    f64_s = time.perf_counter() - t0
+    log(f'[15 tiers float64] {len(TIER_GRIDS)} tier grids ('
+        f'{", ".join(TIER_GRIDS)}) through the kernels on the card, launches '
+        f'(3, 1) per conv_properties_fused, (1, 1) per '
+        f'min_conv_properties_fused, (1, 0) per solve: equal to the CPU '
+        f'twins and to the card\'s modular path (NaN and boolean patterns '
+        f'identical, values within 1e-10 of scale; {len(notes)} outputs '
+        f'held to {F64_ATOL} instead, each printed above); serial oracle: '
+        f'multicross base and deep sets within 1 hPa and 1.5 J/kg, '
+        f'make_grid CAPE within {grid_err:.3g} J/kg of the table tier\'s 1 '
+        f'({branch.mean():.0%} on the same branch), sweep dup_pressure and '
+        f'combined at the sweep\'s tolerances (modular, exact ODE) and the '
+        f'table tier\'s (fused) on {comparable} comparable columns '
+        f'(mu, m100, m50); {hold_s:.1f} s holding, {f64_s:.1f} s in all')
+
+    # Float32 at full width.
+    t1 = time.perf_counter()
+    per = -(-65_536 // len(SWEEP_CASES))
+    cols = [sweep_columns(case, n=per, L=LEVELS) for case in SWEEP_CASES]
+    p, t, td0, h = (np.concatenate([c[i] for c in cols]) for i in range(4))
+    winds = {k: np.concatenate([c[4][k] for c in cols]) for k in cols[0][4]}
+    small, _ = sweep_inputs(p, t, td0, h, winds, dtype=torch.float32,
+                            device=dev)
+    distinct = p.shape[0]
+    idx = torch.arange(MAIN_COLUMNS, device=dev) % distinct
+    dat = {k: v[idx].contiguous() for k, v in small.items()}
+    del small
+
+    def pipeline():
+        return xt.conv_properties_fused(dat, tables=tab32, ignore_nans=True)
+    fused.cape_cin_kernel.launches = diag.diag_kernel.launches = 0
+    got = pipeline()
+    torch.cuda.synchronize()
+    counts = (fused.cape_cin_kernel.launches, diag.diag_kernel.launches)
+    if counts != (3, 1):
+        raise AssertionError(f'15 float32: (solve, tail) launches {counts}')
+    launches += counts
+    want = xt.conv_properties(dat, tables=tab32, ignore_nans=True)
+    f32_err = compare('15 adversarial float32/', got, want, 'float32')
+    flips = {k: float((torch.isnan(got[k]) != torch.isnan(want[k])).double()
+                      .mean()) for k in got if got[k].dtype != torch.bool}
+    n_cape = int(torch.isfinite(got['mu_cape']).sum())
+    del got, want
+    rate = MAIN_COLUMNS / wall_median(pipeline, 5)
+    bp, bt = dat['pressure'], dat['temperature']
+    btd = thermo.dewpoint_from_specific_humidity(bp, bt,
+                                                 dat['specific_humidity'])
+    margs = tuple(x.contiguous() for x in (
+        bp, bt, btd, *fused.prepass(bp, bp[:, 0], bt[:, 0], btd[:, 0],
+                                    tab32)))
+    adv_solve_ms, _ = cuda_ms(lambda: fused.cape_cin_kernel(*margs), 10)
+    del margs
+    targs = tuple(x.contiguous() for x in (bp, bt, btd, dat['height_asl']))
+    adv_tail_ms, _ = cuda_ms(lambda: diag.diag_kernel(*targs), 10)
+    del targs, dat
+    worst = max(flips, key=flips.get)
+    log(f'[15 tiers float32] the five sweep classes at {LEVELS} levels, '
+        f'{distinct} distinct adversarial columns tiled to {MAIN_COLUMNS}: '
+        f'conv_properties_fused (launches 3+1) within the float32 budget '
+        f'of the card\'s modular path (max |diff| {f32_err:.3g}; most NaN '
+        f'flips {flips[worst]:.2%} in {worst}; mu_cape finite in {n_cape} '
+        f'columns); {rate:.4g} columns/s against phase 5\'s '
+        f'{pipeline_rate:.4g} on the synthetic columns; solve kernel '
+        f'{adv_solve_ms:.3f} ms against {solve_ms:.3f}, tail kernel '
+        f'{adv_tail_ms:.3f} ms against {tail_ms:.3f} (CUDA events, '
+        f'adversarial against synthetic); {time.perf_counter() - t1:.1f} s; '
+        f'{smi}')
+    return tuple(int(n) for n in launches)
 
 
 def main():
@@ -1453,6 +2253,12 @@ def main():
         f'then one wait) against phase 5\'s {rates["surface"]:.4g} (median '
         f'of 5 waited calls), held to a factor of two: the solve is '
         f'host-bound and spreads that much between runs; {smi}')
+
+    # 15. The JAX package's acceptance tiers through the kernels.
+    counts = phase_tiers(dev, tab64, tab32, smi, kernel_ms, tail_ms,
+                         rates['pipeline'])
+    launches['fused_cape_cin'] += counts[0]
+    launches['diag_tail'] += counts[1]
 
     record = {'kernels': [{
         'name': 'fused_cape_cin',

@@ -461,3 +461,31 @@ def test_deployed_exact_fit_returns_cuda_tensors(device, coeffs, tmp_path):
     for k, v in want.items():
         assert isinstance(served[k], np.ndarray)
         np.testing.assert_array_equal(served[k], v.cpu().numpy(), err_msg=k)
+
+
+# --- the JAX package's acceptance tiers through the kernels -----------------
+
+@pytest.mark.parametrize('name', chip_smoke.TIER_GRIDS)
+def test_tier_grid_through_the_kernels(device, coeffs, name):
+    """Each tier grid in float64 through the kernel path on the card, with
+    its launch counts: equal to the CPU twins and to the card's modular
+    path, NaN and boolean patterns identical, values within 1e-10 of scale
+    (``chip_smoke.F64_ATOL`` where only CUDA's exp/log rounding differs)."""
+    outs, notes, launches = chip_smoke.hold_tier(name, AdiabatTables(coeffs),
+                                                 device)
+    assert outs and all(len(o) >= 6 for o in outs.values())
+    assert launches in ((4, 2), (1, 0))
+    for line in notes:
+        print(line)
+
+
+@pytest.mark.parametrize('kind', ['base', 'deep'])
+def test_multicross_kernel_vs_serial(device, coeffs, kind):
+    """The solve kernel on the multicross sets against the serial oracle:
+    LFC/EL NaN together or within 1 hPa, CAPE/CIN within 1.5 J/kg."""
+    outs, _, _ = chip_smoke.hold_tier(f'multicross/{kind}',
+                                      AdiabatTables(coeffs), device)
+    out = outs['fused_cape_cin']
+    chip_smoke.check_multicross(kind, chip_smoke.multicross_set(kind)[1],
+                                out['cape'], out['cin'], out['lfc_pressure'],
+                                out['el_pressure'])

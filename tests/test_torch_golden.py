@@ -3,10 +3,8 @@
 The same soundings, the same truth values and the same per-test decimals as
 that file, run through the PyTorch port in float64 on the CPU.  As there,
 the exact-ODE moist-lapse oracle (``adiabat.moist_lapse_integrate``) stands
-in for the table consumer.  The JAX facade's ``lfc_el`` and
-``cape_cin_base`` take linear pressures; the port's take the crossing set
-and pressures in log space, which :func:`run_lfc_el` and
-:func:`run_cape_cin_base` build.
+in for the table consumer.  ``lfc_el`` and ``cape_cin_base`` are called
+with the JAX package's signatures, on linear pressures.
 
 Attribution: the truth constants (expected values, soundings, tolerances)
 in this file derive from MetPy's test suite (Copyright 2008-2023 MetPy
@@ -52,27 +50,13 @@ def profile_with_lcl(levels, temps, dews, parcel=None, lcl_interp='linear'):
 
 def run_lfc_el(prof):
     """``lfc_el`` on a profile's pressure, parcel temperature and
-    environment temperature tracks and its LCL."""
-    p, pt, t = torch.broadcast_tensors(prof['pressure'], prof['temperature'],
-                                       prof['environment_temperature'])
-    lp = ops.safe_log(p)
-    ints = ops.find_intersections(p, pt, t, log_x=True, log_x_values=lp,
-                                  log_outputs=True)
-    sol = cape.lfc_el(pt, t, prof['lcl_pressure'], prof['lcl_temperature'],
-                      ints, lp, ops.safe_log(prof['lcl_pressure']),
-                      ops.first_valid_index(p))
-    return {k: v for k, v in sol.items() if not k.startswith('_')}
-
-
-def run_cape_cin_base(pressure, temperature, lfc_pressure, el_pressure,
-                      parcel_temperature):
-    lp = ops.safe_log(pressure)
-    ints = ops.find_intersections(pressure, parcel_temperature, temperature,
-                                  log_x=True, log_x_values=lp,
-                                  log_outputs=True)
-    return cape.cape_cin_base(temperature, parcel_temperature, ints, lp,
-                              ops.safe_log(lfc_pressure),
-                              ops.safe_log(el_pressure))
+    environment temperature tracks and its LCL, as the JAX golden tests
+    call it."""
+    return cape.lfc_el(pressure=prof['pressure'],
+                       parcel_temperature=prof['temperature'],
+                       temperature=prof['environment_temperature'],
+                       lcl_pressure=prof['lcl_pressure'],
+                       lcl_temperature=prof['lcl_temperature'])
 
 
 # ----------------------------------------------------------------- moist/dry
@@ -540,8 +524,8 @@ def _cape_cin_from_plain_profile(levels, temps, dews, offset=0.0):
     prof['temperature'] = prof['temperature'] + offset
     prof['environment_temperature'] = temps
     lfc = run_lfc_el(prof)
-    return run_cape_cin_base(levels, temps, lfc['lfc_pressure'],
-                             lfc['el_pressure'], prof['temperature'])
+    return cape.cape_cin_base(levels, temps, lfc['lfc_pressure'],
+                              lfc['el_pressure'], prof['temperature'])
 
 
 def test_cape_cin():
@@ -846,7 +830,7 @@ def test_el_temperature_uses_above_first_crossing_set():
                          'decreasing_x': [500., 500., nan],
                          'decreasing_y': [999., 251., nan]}.items()}
     lcl_p = T(850.)
-    sol = cape.lfc_el(pt, t, lcl_p, T(295.), ints, ops.safe_log(p),
-                      ops.safe_log(lcl_p), ops.first_valid_index(p))
+    sol = cape.lfc_el(p, pt, t, lcl_p, T(295.), intersections=ints,
+                      intersections_in_log=True)
     assert_almost_equal(f(sol['el_pressure']), 500.0, 6)
     assert_almost_equal(f(sol['el_temperature']), 251.0, 6)

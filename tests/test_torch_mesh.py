@@ -386,19 +386,22 @@ def test_stream_map_sharded_chunks_match_direct(mesh, jmesh, tables,
         assert_same(jstreamed[k], streamed[k], atol=1e-8, name=k)
 
     # Witness the placement: every chunk lands on all 8 entries, at the
-    # rounded-up chunk size.
+    # rounded-up chunk size, and the entries run at once: each call waits
+    # until the calls of all 8 entries have reached the barrier (a serial
+    # run would break it at its timeout).
     seen = []
     lock = threading.Lock()
+    meet = threading.Barrier(8, timeout=60)
 
     def probe(d):
         with lock:
-            seen.append((tuple(d['pressure'].shape), threading.get_ident()))
+            seen.append(tuple(d['pressure'].shape))
+        meet.wait()
         return {'x': d['pressure'][..., 0]}
 
     out = stream_map(probe, dat, batch_columns=10, mesh=mesh)
     np.testing.assert_array_equal(out['x'], dat['pressure'][:, 0])
-    assert len(seen) == 16 and {s for s, _ in seen} == {(2, L)}
-    assert len({ident for _, ident in seen}) > 1
+    assert len(seen) == 16 and set(seen) == {(2, L)}
 
 
 def test_stream_map_mesh_pads_ints_and_keeps_order(mesh):
@@ -490,11 +493,15 @@ def test_dataset_mesh_errors(mesh, tables):
 
 # --- the entry-point file and two processes ----------------------------------
 
-def test_graft_entry_dryrun_multichip(capsys):
+def test_graft_entry_dryrun_multichip(capsys, jax_tables):
     import __graft_entry_torch__ as entry
-    entry.dryrun_multichip(8)
+    # The JAX package's cached coefficients: the defaults would be built on
+    # the CPU first, which takes minutes there.
+    tab32 = AdiabatTables.from_numpy(np.asarray(jax_tables.coeffs), 'cpu',
+                                     torch.float32)
+    entry.dryrun_multichip(8, tables=tab32)
     assert 'dryrun_multichip OK: 8 mesh entries' in capsys.readouterr().out
-    fn, args = entry.entry(device='cpu')
+    fn, args = entry.entry(device='cpu', tables=tab32)
     cape, cin = fn(*args)
     assert cape.shape == cin.shape == (256,) and torch.isfinite(cape).any()
 

@@ -269,7 +269,7 @@ def test_trap_around_zeros():
     got, got_mask = tops.trap_around_zeros(
         to_torch(p), to_torch(a - b), log_x=True, intersections=got_ints,
         log_x_values=to_torch(lp))
-    assert set(got) == {'area', 'x', 'dx'}
+    assert set(got) == set(want) == {'area', 'x', 'dx', 'x_from', 'x_to'}
     assert_same(want, got)
     assert_same(want_mask, got_mask)
     # Self-built crossing set (the zero line).

@@ -5,16 +5,16 @@ The same inputs, made from a seed with numpy, go through the JAX package's
 and the port's copies, on ``device='cpu'``.
 
 Tolerances.  Array facade and per-function Dataset surface, float64:
-identical NaN patterns and 1e-9 absolute (``assert_same``); the
-reference-signature ``lfc_el``/``cape_cin_base`` adapters run in log
-pressure where the JAX functions compare in pressure, so their pressures
-get 1e-9 relative.  The Dataset pipelines: the JAX surface lowers every
-Dataset to float32 (and then computes against float64 tables), so against it
-the port's float32 run is held to the float32 budget (p95 <= 1e-4, max <=
-5e-4 of each output's scale, booleans equal in >= 95% of columns), with
-variables, dims, coords and attrs equal exactly; the port's float64 lowering
-(``dtype=np.float64``) is held to the JAX package's tensor-level pipelines
-in float64 at 1e-6 of each output's scale.  Every layout of the same
+identical NaN patterns and 1e-9 absolute (``assert_same``);
+``lfc_el``/``cape_cin_base`` take the JAX signatures and compare linear
+pressures by default, as JAX's do.  The Dataset pipelines: the JAX surface
+lowers every Dataset to float32 (and then computes against float64
+tables), so against it the port's float32 run is held to the float32
+budget (p95 <= 1e-4, max <= 5e-4 of each output's scale, booleans equal in
+>= 95% of columns), with variables, dims, coords and attrs equal exactly;
+the port's float64 lowering (``dtype=np.float64``) is held to the JAX
+package's tensor-level pipelines in float64 at 1e-6 of each output's
+scale.  Every layout of the same
 Dataset (level dim leading or trailing, permuted dims, a 1-D pressure
 coordinate) and every ``stream_columns`` gives the whole call's values to
 1e-6 of scale.
@@ -225,6 +225,8 @@ LEFT_OUT_NAMES = {
     ('parallel', 'sharded_jit'):
         'its counterpart is sharded_map: there is nothing to jit',
     ('parallel.mesh', 'sharded_jit'): 'the same',
+    ('adiabat', 'AdiabatTables.tree_flatten'):
+        'a JAX pytree method: torch has no pytrees to flatten tables into',
 }
 LEFT_OUT_KEYWORDS = {
     'jit': 'eager PyTorch has nothing to jit',
@@ -240,7 +242,11 @@ LEFT_OUT_KEYWORDS = {
 MODULE_PAIRS = ['parallel', 'parallel.mesh', 'parallel.stream',
                 'parallel.chunked', 'utils', 'utils.profiling',
                 'utils.compare', 'native', 'deploy', 'pipeline', 'api',
-                'xarray_api', 'fieldset', 'xr_lite']
+                'xarray_api', 'fieldset', 'xr_lite', 'cape', 'fused',
+                'parcels', 'thermo', 'lcl', 'adiabat', 'profile',
+                'diagnostics', 'constants', 'ops', 'ops.integrate',
+                'ops.interp', 'ops.intersect', 'ops.levels', 'ops.reduce',
+                'ops.safe']
 
 
 def defined(module):
@@ -258,8 +264,11 @@ def defined(module):
 
 
 def keywords(fn):
+    """The names a caller can pass (``*args``/``**kwargs`` are not
+    names)."""
     import inspect
-    return set(inspect.signature(fn).parameters)
+    return {n for n, p in inspect.signature(fn).parameters.items()
+            if p.kind not in (p.VAR_POSITIONAL, p.VAR_KEYWORD)}
 
 
 @pytest.mark.parametrize('name', MODULE_PAIRS)
@@ -274,7 +283,9 @@ def test_every_module_name_and_keyword_is_in_the_port(name):
                if (name, n) not in LEFT_OUT_NAMES}
     assert not missing, f'{name}: names missing: {sorted(missing)}'
     stale = [n for (m, n) in LEFT_OUT_NAMES
-             if m == name and n in defined(tmod)]
+             if m == name and (n in defined(tmod) or (
+                 '.' in n and hasattr(getattr(tmod, n.split('.')[0]),
+                                      n.split('.')[1])))]
     assert not stale, f'{name}: listed as left out but present: {stale}'
     for n in sorted(defined(jmod) & defined(tmod)):
         a, b = getattr(jmod, n), getattr(tmod, n)
@@ -282,7 +293,8 @@ def test_every_module_name_and_keyword_is_in_the_port(name):
         if inspect.isclass(a) and inspect.isclass(b):
             methods = {m for m, v in vars(a).items()
                        if inspect.isfunction(v) and (
-                           not m.startswith('_') or m == '__call__')}
+                           not m.startswith('_') or m == '__call__')
+                       and (name, f'{n}.{m}') not in LEFT_OUT_NAMES}
             assert methods <= set(dir(b)), (
                 f'{name}.{n}: methods missing: '
                 f'{sorted(methods - set(dir(b)))}')
@@ -304,14 +316,16 @@ def test_package_version_and_modules():
 
 
 def test_the_port_imports_nothing_of_jax():
-    """No module of the port, nor the scripts at the root that drive it,
-    imports ``jax`` or the JAX package."""
+    """No module of the port, nor the scripts that drive it (at the root
+    and the port's examples), imports ``jax`` or the JAX package."""
     import os
     import re
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     files = [os.path.join(root, f)
              for f in ('chip_smoke.py', '__graft_entry_torch__.py',
-                       'kernel_ab.py')]
+                       'kernel_ab.py', 'examples/demo_torch.py',
+                       'examples/xarray_demo_torch.py',
+                       'examples/multichip_torch.py')]
     for folder, _, names in os.walk(os.path.join(root,
                                                  'xarray_parcel_tpu_torch')):
         files += [os.path.join(folder, f) for f in names
@@ -595,6 +609,69 @@ def test_facade_trap_around_zeros(profile, start):
     assert set(got[0]) == set(want[0]) == {'area', 'x', 'dx', 'x_from',
                                            'x_to'}
     assert_same(want, got)
+
+
+@pytest.mark.parametrize('mode', ['self_built', 'precomputed'])
+def test_cape_lfc_el_and_cape_cin_base_in_log_space(profile, mode):
+    """``cape.lfc_el`` with ``intersections_in_log`` (its crossing set
+    built there, or passed in with the log pressures and the first level),
+    ``cape.cape_cin_base`` with the log LFC/EL it returns, and
+    ``ops.trap_around_zeros`` with a precomputed crossing set, under the
+    JAX package's keywords and against its functions.  (``api`` holds the
+    same functions: the facade tests above cover the linear default.)"""
+    from xarray_parcel_tpu import cape as jcape
+    from xarray_parcel_tpu_torch import cape as tcape
+    _, prof = profile
+    names = ('pressure', 'virtual_temperature',
+             'environment_virtual_temperature', 'lcl_pressure',
+             'lcl_virtual_temperature')
+    ja = [jnp.asarray(prof[k]) for k in names]
+    ta = [to_torch(prof[k]) for k in names]
+
+    def log_keywords(ops, first_valid, args):
+        if mode == 'self_built':
+            return dict(intersections_in_log=True)
+        p, pt, t = args[:3]
+        lp = ops.safe_log(p)
+        return dict(intersections_in_log=True,
+                    intersections=ops.find_intersections(
+                        p, pt, t, log_x=True, log_x_values=lp,
+                        log_outputs=True),
+                    log_pressure=lp, log_lcl_pressure=ops.safe_log(args[3]),
+                    first_valid=first_valid(p))
+
+    want = jcape.lfc_el(*ja, **log_keywords(
+        jops, lambda p: jnp.argmax(~jnp.isnan(p), axis=-1), ja))
+    got = tcape.lfc_el(*ta, **log_keywords(tops, tops.first_valid_index, ta))
+    assert set(got) == set(want) and '_lfc_log_pressure' in got
+    for k in want:
+        assert_same(want[k], got[k], atol=1e-9, name=k)
+    assert np.isfinite(np.asarray(want['lfc_pressure'])).sum() > 5
+
+    base = (prof['pressure'], prof['environment_virtual_temperature'],
+            np.asarray(want['lfc_pressure']), np.asarray(want['el_pressure']),
+            prof['virtual_temperature'])
+    for kw in (dict(), dict(pos_cape_neg_cin=False),
+               dict(post_zero_cin=True)):
+        assert_same(
+            jcape.cape_cin_base(*(jnp.asarray(a) for a in base),
+                                log_lfc_pressure=want['_lfc_log_pressure'],
+                                log_el_pressure=want['_el_log_pressure'],
+                                **kw),
+            tcape.cape_cin_base(*(to_torch(a) for a in base),
+                                log_lfc_pressure=got['_lfc_log_pressure'],
+                                log_el_pressure=got['_el_log_pressure'],
+                                **kw),
+            atol=1e-7, name=f'{mode} {kw}')
+
+    x, y = to_torch(prof['pressure']), to_torch(
+        prof['virtual_temperature'] - prof['environment_virtual_temperature'])
+    ints = tops.find_intersections(x, y, torch.zeros_like(y), log_x=True)
+    assert_same(jops.trap_around_zeros(jnp.asarray(x.numpy()),
+                                       jnp.asarray(y.numpy())),
+                tops.trap_around_zeros(x, y, intersections=ints))
+    with pytest.raises(ValueError):
+        tops.trap_around_zeros(x, y, start=2, intersections=ints)
 
 
 def test_facade_wrappers_rename_and_annotate(tables, jax_tables):

@@ -14,13 +14,12 @@ import numpy as np
 import torch
 
 from . import adiabat, native, thermo
-from . import cape as _cape
 from . import ops as _ops
 from . import profile as _profile
 from ._device import resolve_device
 from .adiabat import (AdiabatTables, load_moist_adiabat_lookups, moist_lapse,
                       moist_lapse_integrate, round_to)
-from .cape import cape_cin
+from .cape import cape_cin, cape_cin_base, lfc_el
 from .cape import surface_based_cape_cin as _sb_cape_cin
 from .diagnostics import (deep_convective_index as _dci,
                           freezing_level_height, isobar_temperature,
@@ -31,8 +30,8 @@ from .fieldset import FieldSet, annotate, attrs_for
 from .lcl import lcl
 from .ops import (bound_pressure, compact_left, find_intersections,
                   get_layer, insert_level, interp1d, linear_interp,
-                  log_interp, trapz)
-from .ops.safe import safe_log, tensor_like
+                  log_interp, trap_around_zeros, trapz)
+from .ops.safe import tensor_like
 from .parcels import (from_most_unstable_parcel, mix_layer, mixed_layer,
                       mixed_parcel, most_unstable_parcel)
 from .parcels import (mixed_layer_cape_cin as _ml_cape_cin,
@@ -100,58 +99,6 @@ def dry_lapse(pressure, parcel_temperature, parcel_pressure=None):
     if pp.dim() < pressure.dim():
         pp = pp[..., None]
     return thermo.dry_lapse(pressure, pt, pp)
-
-
-def lfc_el(pressure, parcel_temperature, temperature, lcl_pressure,
-           lcl_temperature):
-    """Level of free convection and equilibrium level from (…, L) profile
-    tracks (already holding the LCL level) and the (…) LCL state, under the
-    reference's signature.  The search runs in log pressure; only the two
-    pressures returned are exponentiated."""
-    p, pt, t = torch.broadcast_tensors(pressure, parcel_temperature,
-                                       temperature)
-    lp = safe_log(p)
-    ints = find_intersections(p, pt, t, log_x=True, log_x_values=lp,
-                              log_outputs=True)
-    lcl_p = tensor_like(lcl_pressure, p)
-    sol = _cape.lfc_el(pt, t, lcl_p, tensor_like(lcl_temperature, p), ints,
-                       lp, safe_log(lcl_p), _ops.first_valid_index(p))
-    return {k: v for k, v in sol.items() if not k.startswith('_')}
-
-
-def cape_cin_base(pressure, temperature, lfc_pressure, el_pressure,
-                  parcel_temperature, pos_cape_neg_cin=True,
-                  post_zero_cin=False):
-    """CAPE and CIN from a parcel track and LFC/EL pressures, under the
-    reference's signature; ``pos_cape_neg_cin`` and ``post_zero_cin`` as in
-    :func:`cape.cape_cin_base`."""
-    p, t, pt = torch.broadcast_tensors(pressure, temperature,
-                                       parcel_temperature)
-    lp = safe_log(p)
-    ints = find_intersections(p, pt, t, log_x=True, log_x_values=lp,
-                              log_outputs=True)
-    return _cape.cape_cin_base(
-        t, pt, ints, lp, safe_log(tensor_like(lfc_pressure, p)),
-        safe_log(tensor_like(el_pressure, p)),
-        pos_cape_neg_cin=pos_cape_neg_cin, post_zero_cin=post_zero_cin)
-
-
-def trap_around_zeros(x, y, log_x=True, start=0):
-    """Rectangle areas hugging each zero crossing of ``y`` along ``x``
-    from level ``start`` on.  Returns ``(areas, gap_mask)``: ``areas``
-    holds 'area', 'x', 'dx', 'x_from' and 'x_to', each
-    (…, 2*(L-start-1)); ``gap_mask`` (…, L-1) is False for gaps that hold a
-    crossing and True for every gap before ``start``."""
-    x, y = torch.broadcast_tensors(x, y)
-    areas, gap_mask = _ops.trap_around_zeros(x[..., start:], y[..., start:],
-                                             log_x=log_x)
-    areas = dict(areas, x_from=areas['x'] - areas['dx'] * 0.5,
-                 x_to=areas['x'] + areas['dx'] * 0.5)
-    if start:
-        lead = torch.ones(x.shape[:-1] + (start,), dtype=torch.bool,
-                          device=x.device)
-        gap_mask = torch.cat([lead, gap_mask], -1)
-    return areas, gap_mask
 
 
 def _rename(res, prefix):

@@ -1,11 +1,12 @@
 """LFC/EL selection and CAPE/CIN integration.
 
-Port of ``xarray_parcel_tpu.cape``.  ``lfc_el`` and ``cape_cin_base`` take
-the log-pressure form both paths use: the crossing set comes in with
-log-pressure positions, every window comparison runs in log space, and only
-the LFC/EL pressures are exponentiated.  ``cape_cin`` and
-``surface_based_cape_cin`` are the modular path: the parcel profile with
-the LCL spliced in, then the same selection and integration.
+Port of ``xarray_parcel_tpu.cape``, with its signatures.  ``lfc_el``
+compares linear pressures by default; ``cape_cin`` and the fused column
+program call it with ``intersections_in_log=True``, so that the crossing
+set comes in with log-pressure positions, every window comparison runs in
+log space, and only the LFC/EL pressures are exponentiated.  ``cape_cin``
+and ``surface_based_cape_cin`` are the modular path: the parcel profile
+with the LCL spliced in, then the same selection and integration.
 
 * LFC = bottom-most (highest-pressure) increasing parcel/environment
   crossing above the LCL, with the USAF1990 LCL-substitution rules;
@@ -19,35 +20,56 @@ import torch
 
 from . import constants as c
 from .ops import (find_intersections, first_valid_index, nanmax, nanmin,
-                  nansum, notnan, safe_exp, safe_log, trap_around_zeros)
+                  nansum, notnan, safe_exp, safe_log, tensor_like,
+                  trap_around_zeros)
 from .ops.integrate import gap_areas, select_areas
 from .profile import parcel_profile_with_lcl
 
 
-def lfc_el(parcel_temperature, temperature, lcl_pressure, lcl_temperature,
-           intersections, log_pressure, log_lcl_pressure, first_valid):
+def lfc_el(pressure, parcel_temperature, temperature, lcl_pressure,
+           lcl_temperature, intersections=None, log_pressure=None,
+           log_lcl_pressure=None, intersections_in_log=False,
+           first_valid=None):
     """Level of free convection and equilibrium level.
 
-    ``parcel_temperature``/``temperature``/``log_pressure``: (…, L) tracks
-    including the LCL level; ``intersections``: ``find_intersections`` of
-    the two tracks with log-pressure outputs; ``first_valid``: (…) index of
-    the first valid level.  Returns lfc/el pressure and temperature, plus
-    the private log-space ``_lfc_log_pressure``/``_el_log_pressure`` that
-    ``cape_cin_base`` takes.
+    ``pressure``/``parcel_temperature``/``temperature``: (…, L) tracks
+    including the LCL level; ``lcl_pressure``/``lcl_temperature``: (…).
+    Returns lfc/el pressure and temperature.  By default every pressure
+    comparison runs on linear pressures, with a crossing set built here.
+    ``intersections``: a precomputed ``find_intersections(p, pt, t,
+    log_x=True)``.  With ``intersections_in_log`` the set holds log-pressure
+    positions (``log_outputs=True``), every comparison runs in log space
+    (``log_pressure``/``log_lcl_pressure`` skip the logs), only the LFC/EL
+    pressures are exponentiated, and the private ``_lfc_log_pressure``/
+    ``_el_log_pressure`` that :func:`cape_cin_base` takes are added.
+    ``first_valid``: (…) index of the first valid level.
     """
-    pt, t, pw = parcel_temperature, temperature, log_pressure
-    lcl_p = lcl_pressure
-    lcl_t = lcl_temperature
-    lclw = log_lcl_pressure[..., None]
-    ints = intersections
+    p, pt, t = torch.broadcast_tensors(pressure, parcel_temperature,
+                                       temperature)
+    lcl_p = tensor_like(lcl_pressure, p)
+    lcl_t = tensor_like(lcl_temperature, p)
+    if intersections_in_log:
+        pw = log_pressure if log_pressure is not None else safe_log(p)
+        lclw = (tensor_like(log_lcl_pressure, p)
+                if log_lcl_pressure is not None else safe_log(lcl_p))
+    else:
+        pw, lclw = p, lcl_p
+    # A self-built crossing set lives in the space of the comparisons.
+    ints = (intersections if intersections is not None else
+            find_intersections(
+                p, pt, t, log_x=True,
+                log_x_values=pw if intersections_in_log else None,
+                log_outputs=intersections_in_log))
+    if first_valid is None:
+        first_valid = first_valid_index(p)
 
     # Gap/level k0 (the first valid level): a crossing at gap k0 is dropped
     # from the increasing set when parcel and environment share the first
     # level's value (8-ulp test), and always from the decreasing set.
     k0 = first_valid[..., None].to(torch.int64)
     gap0 = torch.arange(ints['increasing_x'].shape[-1],
-                        device=pw.device) == k0
-    at_k0 = torch.arange(pw.shape[-1], device=pw.device) == k0
+                        device=p.device) == k0
+    at_k0 = torch.arange(p.shape[-1], device=p.device) == k0
     t0 = nanmax(t, where=at_k0)
     pt0 = nanmax(pt, where=at_k0)
     tol = (8.0 * torch.finfo(t.dtype).eps
@@ -60,7 +82,7 @@ def lfc_el(parcel_temperature, temperature, lcl_pressure, lcl_temperature,
     dec_y_above = torch.where(gap0, torch.nan, ints['decreasing_y'])
 
     # LFC: bottom-most increasing crossing above the LCL.
-    lfc_p = nanmax(inc_x, where=inc_x < lclw)
+    lfc_p = nanmax(inc_x, where=inc_x < lclw[..., None])
     lfc_t = nanmax(inc_y, where=inc_x == lfc_p[..., None])
 
     # EL: top-most decreasing crossing.
@@ -74,7 +96,6 @@ def lfc_el(parcel_temperature, temperature, lcl_pressure, lcl_temperature,
     at_top = pw == top_p[..., None]
     top_prof = nanmax(pt, where=at_top)
     top_env = nanmax(t, where=at_top)
-    lclw = lclw[..., 0]
     el_exists = (top_prof <= top_env) & (el_p < lclw)
     el_p = torch.where(el_exists, el_p, torch.nan)
     el_t = torch.where(el_exists, el_t, torch.nan)
@@ -88,33 +109,49 @@ def lfc_el(parcel_temperature, temperature, lcl_pressure, lcl_temperature,
     lfc_below_el_above = exists_but_na & (el_p < lclw)
     replace_with_lcl = no_lfc_pos_parcel | lfc_below_el_above
 
+    extra = {}
+    if intersections_in_log:
+        extra = {'_lfc_log_pressure': torch.where(replace_with_lcl, lclw,
+                                                  lfc_p),
+                 '_el_log_pressure': el_p}
+        lfc_p = safe_exp(lfc_p)
+        el_p = safe_exp(el_p)
     return {
-        '_lfc_log_pressure': torch.where(replace_with_lcl, lclw, lfc_p),
-        '_el_log_pressure': el_p,
-        'lfc_pressure': torch.where(replace_with_lcl, lcl_p,
-                                    safe_exp(lfc_p)),
+        'lfc_pressure': torch.where(replace_with_lcl, lcl_p, lfc_p),
         'lfc_temperature': torch.where(replace_with_lcl, lcl_t, lfc_t),
-        'el_pressure': safe_exp(el_p),
+        'el_pressure': el_p,
         'el_temperature': el_t,
+        **extra,
     }
 
 
-def cape_cin_base(temperature, parcel_temperature, intersections,
-                  log_pressure, log_lfc_pressure, log_el_pressure,
-                  pos_cape_neg_cin=True, post_zero_cin=False):
-    """CAPE and CIN from a parcel track and log LFC/EL pressures.
+def cape_cin_base(pressure, temperature, lfc_pressure, el_pressure,
+                  parcel_temperature, pos_cape_neg_cin=True,
+                  post_zero_cin=False, intersections=None,
+                  log_pressure=None, log_lfc_pressure=None,
+                  log_el_pressure=None):
+    """CAPE and CIN from a parcel track and LFC/EL pressures.
 
-    ``pos_cape_neg_cin`` (the reference's default) counts only positive
-    buoyancy toward CAPE and only negative toward CIN; ``post_zero_cin``
-    clamps a positive CIN to zero (MetPy's convention)."""
-    t, pt, log_p = temperature, parcel_temperature, log_pressure
-    lfc_lp = log_lfc_pressure[..., None]
-    el = log_el_pressure
+    Every window comparison runs in log space against ``log(lfc)`` and
+    ``log(el)``; ``intersections`` (a log-output crossing set of the two
+    tracks), ``log_pressure``, ``log_lfc_pressure`` and ``log_el_pressure``
+    skip the work of building them.  ``pos_cape_neg_cin`` (the reference's
+    default) counts only positive buoyancy toward CAPE and only negative
+    toward CIN; ``post_zero_cin`` clamps a positive CIN to zero (MetPy's
+    convention)."""
+    p, t, pt = torch.broadcast_tensors(pressure, temperature,
+                                       parcel_temperature)
+    log_p = log_pressure if log_pressure is not None else safe_log(p)
+    lfc_lp = (tensor_like(log_lfc_pressure, p)
+              if log_lfc_pressure is not None
+              else safe_log(tensor_like(lfc_pressure, p)))[..., None]
+    el = (tensor_like(log_el_pressure, p) if log_el_pressure is not None
+          else safe_log(tensor_like(el_pressure, p)))
     # Missing EL -> top of the sounding.
     el_lp = torch.where(torch.isnan(el), nanmin(log_p), el)[..., None]
 
     diff = pt - t
-    areas, gap_mask = trap_around_zeros(None, diff, log_x=True,
+    areas, gap_mask = trap_around_zeros(p, diff, log_x=True,
                                         intersections=intersections,
                                         log_x_values=log_p)
     area_x = areas['x']
@@ -174,13 +211,15 @@ def cape_cin(pressure, temperature, dewpoint, parcel_temperature,
     lp = safe_log(pp)
     ints = find_intersections(pp, ptr, env, log_x=True, log_x_values=lp,
                               log_outputs=True)
-    lcl_p = profile['lcl_pressure']
-    sol = lfc_el(ptr, env, lcl_p, lcl_track_t, ints, lp, safe_log(lcl_p),
-                 first_valid_index(pp))
-    res = cape_cin_base(env, ptr, ints, lp, sol.pop('_lfc_log_pressure'),
-                        sol.pop('_el_log_pressure'),
-                        pos_cape_neg_cin=pos_cape_neg_cin,
-                        post_zero_cin=post_zero_cin)
+    sol = lfc_el(pp, ptr, env, profile['lcl_pressure'], lcl_track_t,
+                 intersections=ints, log_pressure=lp,
+                 intersections_in_log=True)
+    res = cape_cin_base(pp, env, sol['lfc_pressure'], sol['el_pressure'],
+                        ptr, pos_cape_neg_cin=pos_cape_neg_cin,
+                        post_zero_cin=post_zero_cin, intersections=ints,
+                        log_pressure=lp,
+                        log_lfc_pressure=sol.pop('_lfc_log_pressure'),
+                        log_el_pressure=sol.pop('_el_log_pressure'))
     return res, {**profile, **sol}
 
 

@@ -152,6 +152,10 @@ def _tables_or_load(tables, dtype=None, device=None, full=False):
     if tables is not None:
         return tables
     dtype = _torch_dtype(dtype or 'float32')
+    if full and adiabat._LOADED is None:
+        # Nothing loaded yet: load (or build) the full tables once, not the
+        # coefficients first only to set them aside.
+        return adiabat.load_moist_adiabat_lookups(dtype=dtype, device=device)
     tables = adiabat.default_tables(device, dtype)
     if full and tables.curves is None:
         tables = adiabat.load_moist_adiabat_lookups(dtype=dtype,

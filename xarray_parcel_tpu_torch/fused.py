@@ -149,13 +149,17 @@ def _column_program(p, t, td, row, lcl_p, lcl_t, lcl_vt, w0, t0, p0, k0,
     ints = find_intersections(ins['pressure'], ins['parcel'], ins['env'],
                               log_x=True, log_x_values=ins_lp,
                               log_outputs=True)
-    sol = lfc_el(ins['parcel'], ins['env'], lcl_p, lcl_track, ints, ins_lp,
-                 llcl, k0)
-    res = cape_cin_base(ins['env'], ins['parcel'], ints, ins_lp,
-                        sol.pop('_lfc_log_pressure'),
-                        sol.pop('_el_log_pressure'),
+    sol = lfc_el(ins['pressure'], ins['parcel'], ins['env'], lcl_p, lcl_track,
+                 intersections=ints, log_pressure=ins_lp,
+                 log_lcl_pressure=llcl, intersections_in_log=True,
+                 first_valid=k0)
+    res = cape_cin_base(ins['pressure'], ins['env'], sol['lfc_pressure'],
+                        sol['el_pressure'], ins['parcel'],
                         pos_cape_neg_cin=pos_cape_neg_cin,
-                        post_zero_cin=post_zero_cin)
+                        post_zero_cin=post_zero_cin, intersections=ints,
+                        log_pressure=ins_lp,
+                        log_lfc_pressure=sol.pop('_lfc_log_pressure'),
+                        log_el_pressure=sol.pop('_el_log_pressure'))
     env500, par500 = interp_many((ins['etemp'], ins['ptemp']),
                                  ins['pressure'], 500.0, log=True,
                                  log_coords=ins_lp)

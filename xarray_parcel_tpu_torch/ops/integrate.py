@@ -49,23 +49,31 @@ def trapz(y, x, mask=None, only_positive=False, only_negative=False):
                         only_negative=only_negative)
 
 
-def trap_around_zeros(x, y, log_x=True, intersections=None,
+def trap_around_zeros(x, y, log_x=True, start=0, intersections=None,
                       log_x_values=None):
-    """Rectangle areas hugging each zero crossing of ``y`` along ``x``.
+    """Rectangle areas hugging each zero crossing of ``y`` along ``x``,
+    from level ``start`` on.
 
     ``intersections``: a precomputed crossing set of the same curves
-    (``find_intersections(x, a, b, log_x)`` with ``y = a - b``).
-    Returns ``(areas, gap_mask)``: ``areas`` holds 'area', 'x' and 'dx',
-    each (…, 2*(L-1)) -- the before-rectangles then the after-rectangles,
-    NaN where no crossing, positions in log-x space when ``log_x``;
-    ``gap_mask`` (…, L-1) is False for gaps that hold a crossing.
+    (``find_intersections(x, a, b, log_x)`` with ``y = a - b``), only with
+    ``start=0``; ``log_x_values``: a precomputed ``log(x)``.
+    Returns ``(areas, gap_mask)``: ``areas`` holds 'area', 'x', 'dx',
+    'x_from' and 'x_to', each (…, 2*(L-start-1)) -- the before-rectangles
+    then the after-rectangles, NaN where no crossing, positions in log-x
+    space when ``log_x``; ``gap_mask`` (…, L-1) is False for gaps that hold
+    a crossing and True for every gap before ``start``.
     """
+    if intersections is not None and start:
+        raise ValueError('precomputed intersections require start=0')
+    x, y = torch.broadcast_tensors(x, y)
+    xs, ys = x[..., start:], y[..., start:]
     if log_x:
-        xl = log_x_values if log_x_values is not None else safe_log(x)
+        xl = (log_x_values[..., start:] if log_x_values is not None
+              else safe_log(xs))
     else:
-        xl = x
+        xl = xs
     ints = (intersections if intersections is not None else
-            find_intersections(x, y, torch.zeros_like(y), log_x=log_x,
+            find_intersections(xs, ys, torch.zeros_like(ys), log_x=log_x,
                                log_x_values=xl if log_x else None))
     if log_x:
         zx = ints.get('all_logx')
@@ -87,9 +95,15 @@ def trap_around_zeros(x, y, log_x=True, intersections=None,
                 torch.where(keep, pos, torch.nan),
                 torch.where(keep, torch.abs(dx), torch.nan))
 
-    area_b, pos_b, dx_b = rects(xl[..., :-1], y[..., :-1])
-    area_a, pos_a, dx_a = rects(xl[..., 1:], y[..., 1:])
-    areas = {'area': torch.cat([area_b, area_a], -1),
-             'x': torch.cat([pos_b, pos_a], -1),
-             'dx': torch.cat([dx_b, dx_a], -1)}
-    return areas, ~crossing
+    area_b, pos_b, dx_b = rects(xl[..., :-1], ys[..., :-1])
+    area_a, pos_a, dx_a = rects(xl[..., 1:], ys[..., 1:])
+    pos = torch.cat([pos_b, pos_a], -1)
+    dx = torch.cat([dx_b, dx_a], -1)
+    areas = {'area': torch.cat([area_b, area_a], -1), 'x': pos, 'dx': dx,
+             'x_from': pos - dx * 0.5, 'x_to': pos + dx * 0.5}
+    gap_mask = ~crossing
+    if start:
+        lead = torch.ones(gap_mask.shape[:-1] + (start,), dtype=torch.bool,
+                          device=gap_mask.device)
+        gap_mask = torch.cat([lead, gap_mask], -1)
+    return areas, gap_mask
