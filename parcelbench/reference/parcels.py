@@ -1,0 +1,217 @@
+"""Parcel selection: mixed-layer and most-unstable parcels, and their
+CAPE/CIN wrappers.
+
+Frozen copy of the program's ``parcels``.  Columns keep a static level count:
+a sub-parcel prefix is NaN-masked instead of compacted away, and every
+downstream op is first-valid-index aware.
+"""
+
+import torch
+
+from . import thermo
+from .cape import cape_cin
+from .ops import get_layer, insert_level, interp_many, nanmax, notnan
+
+
+def bridge_neighbors(pressure, valid):
+    """Previous/next valid pressure of every level (exclusive cumulative
+    min/max scans along the level axis; pressures sorted decreasing).
+    ``+inf``/``-inf`` mark "no previous"/"no next"."""
+    run_min = torch.cummin(torch.where(valid, pressure, torch.inf), -1)[0]
+    prev_raw = torch.cat([torch.full_like(run_min[..., :1], torch.inf),
+                          run_min[..., :-1]], -1)
+    masked = torch.where(valid, pressure, -torch.inf)
+    run_max = torch.cummax(masked.flip(-1), -1)[0].flip(-1)
+    next_raw = torch.cat([run_max[..., 1:],
+                          torch.full_like(run_max[..., :1], -torch.inf)], -1)
+    return prev_raw, next_raw
+
+
+def _layer_anchors(p, valid, topb, j, neighbors=None):
+    """What :func:`mixed_layer` integrates over, for one valid-level set:
+    the in-layer mask; the last valid in-layer level (mask, pressure,
+    whether there is one); each in-layer level's previous and next valid
+    pressure (its own where there is none, or the next lies below the
+    layer top); and the first valid in-layer pressure (0 if none)."""
+    prev_raw, next_raw = (bridge_neighbors(p, valid) if neighbors is None
+                          else neighbors)
+    m = valid & (p >= topb)
+    k_star = torch.where(m, j, -1).amax(-1)
+    at_k = (j == k_star[..., None]) & m
+    p_k = torch.where(at_k, p, 0.0).sum(-1)
+    p_own = torch.where(m, p, 0.0)
+    prev_p = torch.where(m & torch.isfinite(prev_raw), prev_raw, p_own)
+    next_p = torch.where(m & (next_raw >= topb), next_raw, p_own)
+    return m, at_k, p_k, at_k.any(-1), prev_p, next_p, p_own.amax(-1)
+
+
+def mixed_layer(fields, depth=100.0, valid=None, neighbors=None):
+    """Mass-weighted average of each variable over the surface-based layer
+    of ``depth`` hPa.
+
+    Trapezoids between consecutive valid in-layer levels (interior-NaN runs
+    bridged), plus a boundary gap from the last valid in-layer level to the
+    log-interpolated layer top, divided by the span the integral covers.
+    With ``prev``/``next`` the neighbouring valid pressures of each level,
+    the bridged trapezoid sum telescopes to
+    ``0.5 * sum_i v_i * (prev_i - next_i)``.
+
+    ``valid``: a level mask shared by every variable (then ``neighbors``
+    may pass its precomputed :func:`bridge_neighbors`); None, each
+    variable mixes over its own valid levels.
+    """
+    p = fields['pressure']
+    vals = {k: v for k, v in fields.items() if k != 'pressure'}
+    bottom = nanmax(p)
+    top = bottom - depth
+    topb = top[..., None]
+    j = torch.arange(p.shape[-1], device=p.device)
+
+    safe_top = torch.where(torch.isnan(top), 0.0, top)
+    safe_bottom = torch.where(torch.isnan(bottom), 0.0, bottom)
+
+    shared = valid is not None
+    if shared:
+        valid = valid & notnan(p)
+        anchors = _layer_anchors(p, valid, topb, j, neighbors)
+        f_top = interp_many(vals, torch.where(valid, p, torch.nan), top,
+                            log=True)
+    out = {}
+    for k, v in vals.items():
+        if shared:
+            ft = f_top[k]
+        else:
+            vv = notnan(p) & notnan(v)
+            anchors = _layer_anchors(p, vv, topb, j)
+            ft = interp_many({k: v}, torch.where(vv, p, torch.nan), top,
+                             log=True)[k]
+        m, at_k, p_k, any_k, prev_p, next_p, p_first = anchors
+        v_own = torch.where(m, v, 0.0)
+        inner = 0.5 * (v_own * (prev_p - next_p)).sum(-1)
+        f_k = torch.where(at_k, v, 0.0).sum(-1)
+        b_ok = any_k & notnan(ft)
+        b_area = (0.5 * (f_k + torch.where(b_ok, ft, 0.0))
+                  * torch.abs(p_k - safe_top))
+        span = torch.where(b_ok,
+                           torch.where(p_first == safe_bottom,
+                                       torch.full_like(p_first, depth),
+                                       p_first - safe_top),
+                           p_first - p_k)
+        inv = torch.where(any_k & (span > 0),
+                          1.0 / torch.where(span > 0, span, 1.0), torch.nan)
+        out[k] = (inner + torch.where(b_ok, b_area, 0.0)) * inv
+    return out
+
+
+def conserved_fields(pressure, temperature, dewpoint):
+    """The mixing-conserved per-level fields (theta, mixing ratio), shared
+    when mixing several depths of the same columns."""
+    return {'theta': thermo.potential_temperature(pressure, temperature),
+            'mixing_ratio': thermo.saturation_mixing_ratio(pressure,
+                                                           dewpoint)}
+
+
+def mixed_parcel(pressure, temperature, dewpoint, depth=100.0,
+                 conserved=None, neighbors=None):
+    """Fully mix a surface-based layer, conserving theta and mixing ratio;
+    returns the parcel's pressure/temperature/dewpoint.  The parcel starts
+    at the first valid pressure."""
+    parcel_start_pressure = nanmax(pressure)
+    valid = notnan(pressure) & notnan(temperature) & notnan(dewpoint)
+    if conserved is None:
+        conserved = conserved_fields(pressure, temperature, dewpoint)
+    mixed = mixed_layer({'pressure': pressure, **conserved}, depth, valid,
+                        neighbors=neighbors)
+    temp = mixed['theta'] * thermo.exner_function(parcel_start_pressure)
+    vap = thermo.vapor_pressure(parcel_start_pressure, mixed['mixing_ratio'])
+    return {'pressure': parcel_start_pressure, 'temperature': temp,
+            'dewpoint': thermo.dewpoint(vap)}
+
+
+def most_unstable_parcel(pressure, temperature, dewpoint, depth=300.0):
+    """The max-theta-e parcel in the surface-based layer of ``depth`` hPa;
+    ties take the first (lowest) level."""
+    layer = get_layer({'pressure': pressure, 'temperature': temperature,
+                       'dewpoint': dewpoint}, depth=depth, interpolate=False)
+    eq = thermo.equivalent_potential_temperature(
+        layer['pressure'], layer['temperature'], layer['dewpoint'])
+    max_eq = nanmax(eq)
+    k = torch.argmax((eq == max_eq[..., None]).to(torch.uint8), dim=-1)
+    sel = ((torch.arange(eq.shape[-1], device=eq.device) == k[..., None]) &
+           notnan(max_eq)[..., None])
+    return {k_: nanmax(v, where=sel) for k_, v in layer.items()}
+
+
+def from_most_unstable_parcel(pressure, temperature, dewpoint, depth=300.0):
+    """Mask every column below its most unstable parcel.  Returns (fields
+    dict of NaN-prefixed (…, L) columns, parcel dict)."""
+    parcel = most_unstable_parcel(pressure, temperature, dewpoint,
+                                  depth=depth)
+    keep = pressure <= parcel['pressure'][..., None]
+    return {
+        'pressure': torch.where(keep, pressure, torch.nan),
+        'temperature': torch.where(keep, temperature, torch.nan),
+        'dewpoint': torch.where(keep, dewpoint, torch.nan),
+    }, parcel
+
+
+def mix_layer(pressure, temperature, dewpoint, depth=100.0, conserved=None,
+              neighbors=None, grow=True):
+    """Replace the lowest ``depth`` hPa with the fully mixed parcel.
+
+    Returns (fields dict, parcel dict): a NaN prefix over the mixed-away
+    levels, then the parcel, then the kept levels.  With ``grow`` the
+    parcel is spliced in by ``insert_level`` (L+1 levels out).  Without,
+    it is written into the last mixed-away slot of the L levels, right
+    below the first kept level (with nothing kept, slot 0): the same
+    profile with one NaN less in its prefix, and no splice (the fused
+    pipelines' path).
+    """
+    mp = mixed_parcel(pressure, temperature, dewpoint, depth=depth,
+                      conserved=conserved, neighbors=neighbors)
+    keep = pressure < (nanmax(pressure) - depth)[..., None]
+    masked = {
+        'pressure': torch.where(keep, pressure, torch.nan),
+        'temperature': torch.where(keep, temperature, torch.nan),
+        'dewpoint': torch.where(keep, dewpoint, torch.nan),
+    }
+    if grow:
+        return insert_level(masked, mp), mp
+    kept = notnan(masked['pressure'])
+    first_kept = torch.argmax(kept.to(torch.uint8), dim=-1)
+    slot = torch.where(kept.any(-1), first_kept - 1, 0)[..., None]
+    at = torch.arange(pressure.shape[-1], device=pressure.device) == slot
+    out = {k: torch.where(at, mp[k][..., None], masked[k]) for k in masked}
+    return out, mp
+
+
+def most_unstable_cape_cin(pressure, temperature, dewpoint, depth=300.0,
+                           **kwargs):
+    """CAPE/CIN of the most-unstable parcel in the lowest ``depth`` hPa,
+    on the columns masked below it; ``kwargs`` as for
+    :func:`cape.cape_cin`.  Returns (cape/cin dict, profile dict, parcel
+    dict)."""
+    fields, parcel = from_most_unstable_parcel(pressure, temperature,
+                                               dewpoint, depth=depth)
+    res, profile = cape_cin(fields['pressure'], fields['temperature'],
+                            fields['dewpoint'],
+                            parcel_temperature=parcel['temperature'],
+                            parcel_pressure=parcel['pressure'],
+                            parcel_dewpoint=parcel['dewpoint'], **kwargs)
+    return res, profile, parcel
+
+
+def mixed_layer_cape_cin(pressure, temperature, dewpoint, depth=100.0,
+                         conserved=None, neighbors=None, **kwargs):
+    """CAPE/CIN of the fully mixed lowest ``depth`` hPa, spliced in as the
+    new bottom level (``mix_layer(grow=True)``); ``kwargs`` as for
+    :func:`cape.cape_cin`.  Returns (cape/cin dict, profile dict, parcel
+    dict)."""
+    fields, mp = mix_layer(pressure, temperature, dewpoint, depth=depth,
+                           conserved=conserved, neighbors=neighbors)
+    res, profile = cape_cin(fields['pressure'], fields['temperature'],
+                            fields['dewpoint'],
+                            parcel_temperature=mp['temperature'],
+                            parcel_pressure=mp['pressure'],
+                            parcel_dewpoint=mp['dewpoint'], **kwargs)
+    return res, profile, mp
