@@ -5,12 +5,14 @@ package's on the CPU.
 test_infer_columns_batch_dims`` and is held to the JAX function on the same
 shapes; the timers are held to what they must return (a result, a positive
 time, a rate that is the columns over the seconds); ``trace`` must write a
-Chrome trace.  No tolerance is involved: counts are exact, times only
-positive.
+Chrome trace, by default under the temporary directory, holding the
+program's ``xparcel.*`` spans.  No tolerance is involved: counts are
+exact, times only positive.
 """
 
 import json
 import os
+import tempfile
 
 import jax.numpy as jnp
 import numpy as np
@@ -18,7 +20,7 @@ import pytest
 import torch
 
 from xarray_parcel_tpu import utils as jutils
-from xarray_parcel_tpu_torch import parallel, utils
+from xarray_parcel_tpu_torch import parallel, parcels, utils
 
 
 @pytest.mark.parametrize('shape,columns', [((6, 7, 90), 42), ((5, 90), 5),
@@ -95,6 +97,24 @@ def test_trace_writes_a_chrome_trace(tmp_path):
     with open(log_dir / files[0]) as f:
         events = json.load(f)['traceEvents']
     assert any('mm' in str(e.get('name', '')) for e in events)
+
+
+def test_trace_defaults_under_the_temporary_directory(monkeypatch, tmp_path):
+    """With no ``log_dir`` the trace goes to ``xparcel_trace`` under
+    ``tempfile.gettempdir()`` (which follows ``TMPDIR``), and holds the
+    program's spans."""
+    monkeypatch.setattr(tempfile, 'tempdir', str(tmp_path))
+    p = torch.linspace(1000.0, 200.0, 12).expand(3, 12)
+    t = torch.linspace(300.0, 220.0, 12).expand(3, 12)
+    with utils.trace() as where:
+        with utils.span('xparcel.test'):
+            parcels.bridge_neighbors(p, t > 0)
+    assert where == str(tmp_path / 'xparcel_trace')
+    files = os.listdir(where)
+    assert len(files) == 1
+    with open(os.path.join(where, files[0])) as f:
+        names = {str(e.get('name')) for e in json.load(f)['traceEvents']}
+    assert {'xparcel.test', 'xparcel.prep.neighbors'} <= names
 
 
 def test_utils_exports_match_the_jax_package():

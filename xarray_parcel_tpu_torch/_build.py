@@ -15,6 +15,10 @@ trees' kernels can be timed through the same wrappers in one process.
 There is no fallback: a missing ``nvcc`` or a failed build raises.  Fast
 math stays off, because the CAPE/CIN solve's selections depend on IEEE
 ``exp``/``log``/divide and on NaN semantics.
+
+What the program records of itself lives here too: the kernel wrappers'
+launch counters (:func:`count_launch`) and the ``xparcel.*`` spans
+(:func:`span`).
 """
 
 import contextlib
@@ -159,6 +163,22 @@ def count_launch(wrapper):
     unguarded ``+=`` would lose counts."""
     with _count_lock:
         wrapper.launches += 1
+
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name):
+    """A context manager that marks its block as ``name`` on the
+    ``torch.profiler`` trace (``record_function``), on the same clock as
+    the kernels, copies and runtime calls, while a profiler records; else
+    one shared null context, at the cost of a flag check.  The program's
+    spans are named ``xparcel.<layer>.<stage>``.  A span opened on a
+    worker thread (``stream_map``'s stager, a mesh entry's thread) does
+    not reach the trace."""
+    if not torch.autograd._profiler_enabled():
+        return _NO_SPAN
+    return torch.profiler.record_function(name)
 
 
 def launch(name, device, pointers, batch, *widths):

@@ -17,7 +17,7 @@ twin's VJP.
 import torch
 
 from . import adiabat, thermo
-from ._build import count_launch, launch
+from ._build import count_launch, launch, span
 from ._vjp import twin_vjp
 from .lcl import lcl
 from .ops import find_intersections, interp_many, log_interp, nanmin, notnan
@@ -220,8 +220,9 @@ def diag_fused(p, t, td, h):
     p, t, td, h = torch.broadcast_tensors(p, t, td, h)
     batch, L = p.shape[:-1], p.shape[-1]
     flat = [x.reshape(-1, L) for x in (p, t, td, h)]
-    if torch.is_grad_enabled() and any(x.requires_grad for x in flat):
-        out = DiagTail.apply(*flat)
-    else:
-        out = diag_kernel(*flat)
+    with span('xparcel.kernel.tail'):
+        if torch.is_grad_enabled() and any(x.requires_grad for x in flat):
+            out = DiagTail.apply(*flat)
+        else:
+            out = diag_kernel(*flat)
     return tuple(v.reshape(batch) for v in out)

@@ -28,7 +28,7 @@ import torch
 
 from . import adiabat, thermo
 from . import constants as c
-from ._build import count_launch, launch
+from ._build import count_launch, launch, span
 from ._vjp import twin_vjp
 from .adiabat import P_BOT, P_TOP, _eval_spectral
 from .cape import cape_cin_base, lfc_el
@@ -321,12 +321,14 @@ def fused_cape_cin(pressure, temperature, dewpoint, parcel_pressure=None,
     t0 = flat_scalar(parcel_temperature, t[:, 0])
     td0 = flat_scalar(parcel_dewpoint, td[:, 0])
 
-    row, scalars, k0 = prepass(p, p0, t0, td0, tables)
+    with span('xparcel.prep.prepass'):
+        row, scalars, k0 = prepass(p, p0, t0, td0, tables)
     args = (p.contiguous(), t.contiguous(), td.contiguous(), row, scalars)
-    if torch.is_grad_enabled() and any(x.requires_grad for x in args):
-        out = CapeCinSolve.apply(*args, k0, with_profile, options)
-    else:
-        out = cape_cin_kernel(*args, k0, with_profile, **options)
+    with span('xparcel.kernel.solve'):
+        if torch.is_grad_enabled() and any(x.requires_grad for x in args):
+            out = CapeCinSolve.apply(*args, k0, with_profile, options)
+        else:
+            out = cape_cin_kernel(*args, k0, with_profile, **options)
     if with_profile:
         out, prof = out
     shaped = {k: v.reshape(batch_shape) for k, v in zip(OUTPUTS, out)}

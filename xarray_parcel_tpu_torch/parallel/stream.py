@@ -6,8 +6,10 @@ column chunks stream through the device: chunk k+1 is copied from a pinned
 host buffer on a side CUDA stream while chunk k computes on the current
 stream, and chunk k-1's results are read back into pinned buffers on a
 third stream; a staging thread fills chunk k+1's pinned buffers meanwhile,
-since launching chunk k keeps the calling thread busy.  Every chunk has one
-shape (the last is NaN-padded), so the
+since launching chunk k keeps the calling thread busy; its waits for a
+staged chunk and for a readback are the spans
+``xparcel.stream.wait_staged`` and ``xparcel.stream.wait_readback``.
+Every chunk has one shape (the last is NaN-padded), so the
 column program only ever sees that shape, and device memory holds at most
 ``prefetch + 1`` chunks.  With a mesh every chunk is split over its entries,
 and each entry streams its share on its own thread with its own copy
@@ -25,6 +27,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from .._build import span
 from .._device import resolve_device
 from .chunked import pad_fill
 from .mesh import check_device_in_mesh, run_entries
@@ -105,7 +108,8 @@ def _stream_cuda(fn, flat, pieces, n_rows, prefetch, device, merged):
     in_flight = []
 
     def finish(slot):
-        slot.copied_out.synchronize()
+        with span('xparcel.stream.wait_readback'):
+            slot.copied_out.synchronize()
         merged.write(slot.start, slot.rows,
                      {k: buf.numpy() for k, buf in slot.outputs.items()})
 
@@ -125,7 +129,8 @@ def _stream_cuda(fn, flat, pieces, n_rows, prefetch, device, merged):
                 finish(in_flight.pop(0))
             slot = slots[i % len(slots)]
             slot.start, slot.rows = start, rows
-            staged.result()
+            with span('xparcel.stream.wait_staged'):
+                staged.result()
             if i + 1 < len(pieces):
                 # The next chunk is staged while this one's launches keep
                 # the host busy.

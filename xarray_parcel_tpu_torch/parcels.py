@@ -9,6 +9,7 @@ downstream op is first-valid-index aware.
 import torch
 
 from . import thermo
+from ._build import span
 from .cape import cape_cin
 from .ops import get_layer, insert_level, interp_many, nanmax, notnan
 
@@ -17,14 +18,17 @@ def bridge_neighbors(pressure, valid):
     """Previous/next valid pressure of every level (exclusive cumulative
     min/max scans along the level axis; pressures sorted decreasing).
     ``+inf``/``-inf`` mark "no previous"/"no next"."""
-    run_min = torch.cummin(torch.where(valid, pressure, torch.inf), -1)[0]
-    prev_raw = torch.cat([torch.full_like(run_min[..., :1], torch.inf),
-                          run_min[..., :-1]], -1)
-    masked = torch.where(valid, pressure, -torch.inf)
-    run_max = torch.cummax(masked.flip(-1), -1)[0].flip(-1)
-    next_raw = torch.cat([run_max[..., 1:],
-                          torch.full_like(run_max[..., :1], -torch.inf)], -1)
-    return prev_raw, next_raw
+    with span('xparcel.prep.neighbors'):
+        run_min = torch.cummin(torch.where(valid, pressure, torch.inf),
+                               -1)[0]
+        prev_raw = torch.cat([torch.full_like(run_min[..., :1], torch.inf),
+                              run_min[..., :-1]], -1)
+        masked = torch.where(valid, pressure, -torch.inf)
+        run_max = torch.cummax(masked.flip(-1), -1)[0].flip(-1)
+        next_raw = torch.cat(
+            [run_max[..., 1:],
+             torch.full_like(run_max[..., :1], -torch.inf)], -1)
+        return prev_raw, next_raw
 
 
 def _layer_anchors(p, valid, topb, j, neighbors=None):
@@ -106,9 +110,10 @@ def mixed_layer(fields, depth=100.0, valid=None, neighbors=None):
 def conserved_fields(pressure, temperature, dewpoint):
     """The mixing-conserved per-level fields (theta, mixing ratio), shared
     when mixing several depths of the same columns."""
-    return {'theta': thermo.potential_temperature(pressure, temperature),
-            'mixing_ratio': thermo.saturation_mixing_ratio(pressure,
-                                                           dewpoint)}
+    with span('xparcel.prep.conserved'):
+        return {'theta': thermo.potential_temperature(pressure, temperature),
+                'mixing_ratio': thermo.saturation_mixing_ratio(pressure,
+                                                               dewpoint)}
 
 
 def mixed_parcel(pressure, temperature, dewpoint, depth=100.0,
@@ -145,14 +150,15 @@ def most_unstable_parcel(pressure, temperature, dewpoint, depth=300.0):
 def from_most_unstable_parcel(pressure, temperature, dewpoint, depth=300.0):
     """Mask every column below its most unstable parcel.  Returns (fields
     dict of NaN-prefixed (…, L) columns, parcel dict)."""
-    parcel = most_unstable_parcel(pressure, temperature, dewpoint,
-                                  depth=depth)
-    keep = pressure <= parcel['pressure'][..., None]
-    return {
-        'pressure': torch.where(keep, pressure, torch.nan),
-        'temperature': torch.where(keep, temperature, torch.nan),
-        'dewpoint': torch.where(keep, dewpoint, torch.nan),
-    }, parcel
+    with span('xparcel.prep.most_unstable'):
+        parcel = most_unstable_parcel(pressure, temperature, dewpoint,
+                                      depth=depth)
+        keep = pressure <= parcel['pressure'][..., None]
+        return {
+            'pressure': torch.where(keep, pressure, torch.nan),
+            'temperature': torch.where(keep, temperature, torch.nan),
+            'dewpoint': torch.where(keep, dewpoint, torch.nan),
+        }, parcel
 
 
 def mix_layer(pressure, temperature, dewpoint, depth=100.0, conserved=None,
@@ -167,22 +173,24 @@ def mix_layer(pressure, temperature, dewpoint, depth=100.0, conserved=None,
     profile with one NaN less in its prefix, and no splice (the fused
     pipelines' path).
     """
-    mp = mixed_parcel(pressure, temperature, dewpoint, depth=depth,
-                      conserved=conserved, neighbors=neighbors)
-    keep = pressure < (nanmax(pressure) - depth)[..., None]
-    masked = {
-        'pressure': torch.where(keep, pressure, torch.nan),
-        'temperature': torch.where(keep, temperature, torch.nan),
-        'dewpoint': torch.where(keep, dewpoint, torch.nan),
-    }
-    if grow:
-        return insert_level(masked, mp), mp
-    kept = notnan(masked['pressure'])
-    first_kept = torch.argmax(kept.to(torch.uint8), dim=-1)
-    slot = torch.where(kept.any(-1), first_kept - 1, 0)[..., None]
-    at = torch.arange(pressure.shape[-1], device=pressure.device) == slot
-    out = {k: torch.where(at, mp[k][..., None], masked[k]) for k in masked}
-    return out, mp
+    with span('xparcel.prep.mix_layer'):
+        mp = mixed_parcel(pressure, temperature, dewpoint, depth=depth,
+                          conserved=conserved, neighbors=neighbors)
+        keep = pressure < (nanmax(pressure) - depth)[..., None]
+        masked = {
+            'pressure': torch.where(keep, pressure, torch.nan),
+            'temperature': torch.where(keep, temperature, torch.nan),
+            'dewpoint': torch.where(keep, dewpoint, torch.nan),
+        }
+        if grow:
+            return insert_level(masked, mp), mp
+        kept = notnan(masked['pressure'])
+        first_kept = torch.argmax(kept.to(torch.uint8), dim=-1)
+        slot = torch.where(kept.any(-1), first_kept - 1, 0)[..., None]
+        at = torch.arange(pressure.shape[-1], device=pressure.device) == slot
+        out = {k: torch.where(at, mp[k][..., None], masked[k])
+               for k in masked}
+        return out, mp
 
 
 def most_unstable_cape_cin(pressure, temperature, dewpoint, depth=300.0,

@@ -19,6 +19,7 @@ import torch
 
 from . import diagnostics as diag
 from . import thermo
+from ._build import span
 from .fieldset import annotate
 from .fused import fused_cape_cin
 from .ops import interp_many
@@ -36,9 +37,10 @@ def _dewpoint_and_valid(dat):
     p = dat['pressure']
     t = dat['temperature']
     q = dat['specific_humidity']
-    dew = thermo.dewpoint_from_specific_humidity(p, t, q)
-    valid = ~(torch.isnan(dew).any(-1) | torch.isnan(p).any(-1) |
-              torch.isnan(t).any(-1) | torch.isnan(q).any(-1))
+    with span('xparcel.prep.dewpoint'):
+        dew = thermo.dewpoint_from_specific_humidity(p, t, q)
+        valid = ~(torch.isnan(dew).any(-1) | torch.isnan(p).any(-1) |
+                  torch.isnan(t).any(-1) | torch.isnan(q).any(-1))
     return p, t, dew, valid
 
 
@@ -163,52 +165,54 @@ def conv_properties_fused(dat, ignore_nans=False, tables=None,
     write: the same profile, at the cost of the splice.  ``with_attrs``
     as in :func:`conv_properties`.
     """
-    p, t, dew, valid = _dewpoint_and_valid(dat)
+    with span('xparcel.pipeline'):
+        p, t, dew, valid = _dewpoint_and_valid(dat)
 
-    mu_fields, mu_parcel = from_most_unstable_parcel(p, t, dew, depth=250.0)
-    mu = _fused_solve(mu_fields, mu_parcel, tables)
-    cons = conserved_fields(p, t, dew)
-    nbrs = bridge_neighbors(p, ~(torch.isnan(p) | torch.isnan(t) |
-                                 torch.isnan(dew)))
-    m100_fields, m100_parcel = mix_layer(p, t, dew, depth=100.0,
-                                         conserved=cons, neighbors=nbrs,
-                                         grow=mix_grow)
-    m100 = _fused_solve(m100_fields, m100_parcel, tables)
-    m50_fields, m50_parcel = mix_layer(p, t, dew, depth=50.0,
-                                       conserved=cons, neighbors=nbrs,
-                                       grow=mix_grow)
-    m50 = _fused_solve(m50_fields, m50_parcel, tables)
+        mu_fields, mu_parcel = from_most_unstable_parcel(p, t, dew,
+                                                         depth=250.0)
+        mu = _fused_solve(mu_fields, mu_parcel, tables)
+        cons = conserved_fields(p, t, dew)
+        nbrs = bridge_neighbors(p, ~(torch.isnan(p) | torch.isnan(t) |
+                                     torch.isnan(dew)))
+        m100_fields, m100_parcel = mix_layer(p, t, dew, depth=100.0,
+                                             conserved=cons, neighbors=nbrs,
+                                             grow=mix_grow)
+        m100 = _fused_solve(m100_fields, m100_parcel, tables)
+        m50_fields, m50_parcel = mix_layer(p, t, dew, depth=50.0,
+                                           conserved=cons, neighbors=nbrs,
+                                           grow=mix_grow)
+        m50 = _fused_solve(m50_fields, m50_parcel, tables)
 
-    mu_mixing_ratio = thermo.mixing_ratio_from_specific_humidity(
-        thermo.specific_humidity_from_dewpoint(mu_parcel['pressure'],
-                                               mu_parcel['dewpoint']))
+        t850, td850, lapse, temp_500, flh, mlh = diag.diag_fused(
+            p, t, dew, dat['height_asl'])
 
-    t850, td850, lapse, temp_500, flh, mlh = diag.diag_fused(
-        p, t, dew, dat['height_asl'])
+        def dci(li):
+            return diag.deep_convective_index(
+                p, t, dew, li, anchors_850=(t850, td850))['dci']
 
-    def dci(li):
-        return diag.deep_convective_index(p, t, dew, li,
-                                          anchors_850=(t850, td850))['dci']
-
-    out = {
-        'mu_cape': mu['cape'], 'mu_cin': mu['cin'],
-        'mu_mixing_ratio': mu_mixing_ratio,
-        'mixed_100_cape': m100['cape'], 'mixed_100_cin': m100['cin'],
-        'mixed_50_cape': m50['cape'], 'mixed_50_cin': m50['cin'],
-        'mu_lifted_index': mu['lifted_index'],
-        'mixed_100_lifted_index': m100['lifted_index'],
-        'mixed_50_lifted_index': m50['lifted_index'],
-        'mu_dci': dci(mu['lifted_index']),
-        'mixed_100_dci': dci(m100['lifted_index']),
-        'mixed_50_dci': dci(m50['lifted_index']),
-        'lapse_rate_700_500': lapse,
-        'temp_500': temp_500,
-        'freezing_level': flh,
-        'melting_level': mlh,
-    }
-    out.update(_shear(dat))
-    if not ignore_nans:
-        out = _mask_invalid(out, valid)
+        with span('xparcel.pipeline.outputs'):
+            mu_mixing_ratio = thermo.mixing_ratio_from_specific_humidity(
+                thermo.specific_humidity_from_dewpoint(
+                    mu_parcel['pressure'], mu_parcel['dewpoint']))
+            out = {
+                'mu_cape': mu['cape'], 'mu_cin': mu['cin'],
+                'mu_mixing_ratio': mu_mixing_ratio,
+                'mixed_100_cape': m100['cape'], 'mixed_100_cin': m100['cin'],
+                'mixed_50_cape': m50['cape'], 'mixed_50_cin': m50['cin'],
+                'mu_lifted_index': mu['lifted_index'],
+                'mixed_100_lifted_index': m100['lifted_index'],
+                'mixed_50_lifted_index': m50['lifted_index'],
+                'mu_dci': dci(mu['lifted_index']),
+                'mixed_100_dci': dci(m100['lifted_index']),
+                'mixed_50_dci': dci(m50['lifted_index']),
+                'lapse_rate_700_500': lapse,
+                'temp_500': temp_500,
+                'freezing_level': flh,
+                'melting_level': mlh,
+            }
+            out.update(_shear(dat))
+            if not ignore_nans:
+                out = _mask_invalid(out, valid)
     return annotate(out) if with_attrs else out
 
 
@@ -222,20 +226,25 @@ def min_conv_properties_fused(dat, tables=None, with_attrs=False):
     through each output's own NaN rules.  ``with_attrs`` as in
     :func:`conv_properties`.
     """
-    p = dat['pressure']
-    t = dat['temperature']
-    q = dat['specific_humidity']
-    dew = thermo.dewpoint_from_specific_humidity(p, t, q)
+    with span('xparcel.pipeline'):
+        p = dat['pressure']
+        t = dat['temperature']
+        q = dat['specific_humidity']
+        with span('xparcel.prep.dewpoint'):
+            dew = thermo.dewpoint_from_specific_humidity(p, t, q)
 
-    m100_fields, m100_parcel = mix_layer(p, t, dew, depth=100.0, grow=False)
-    res = _fused_solve(m100_fields, m100_parcel, tables)
-    _, _, lapse, temp_500, flh, mlh = diag.diag_fused(p, t, dew,
-                                                      dat['height_asl'])
-    out = {'mixed_100_cape': res['cape'], 'mixed_100_cin': res['cin'],
-           'mixed_100_lifted_index': res['lifted_index'],
-           'lapse_rate_700_500': lapse, 'temp_500': temp_500,
-           'freezing_level': flh, 'melting_level': mlh}
-    out.update(_shear(dat))
+        m100_fields, m100_parcel = mix_layer(p, t, dew, depth=100.0,
+                                             grow=False)
+        res = _fused_solve(m100_fields, m100_parcel, tables)
+        _, _, lapse, temp_500, flh, mlh = diag.diag_fused(
+            p, t, dew, dat['height_asl'])
+        with span('xparcel.pipeline.outputs'):
+            out = {'mixed_100_cape': res['cape'],
+                   'mixed_100_cin': res['cin'],
+                   'mixed_100_lifted_index': res['lifted_index'],
+                   'lapse_rate_700_500': lapse, 'temp_500': temp_500,
+                   'freezing_level': flh, 'melting_level': mlh}
+            out.update(_shear(dat))
     return annotate(out) if with_attrs else out
 
 

@@ -3,7 +3,9 @@
 Port of ``xarray_parcel_tpu.utils.profiling``: a timer that waits for the
 device, a columns/sec throughput counter (the framework's headline unit), a
 context manager around ``torch.profiler`` that writes a Chrome trace, and
-accumulating named wall-clock sections.
+accumulating named wall-clock sections.  ``span`` (defined in ``_build``
+beside the kernels' launch counters) is the program's own mark on that
+trace.
 
 PyTorch returns from a CUDA call before the device has finished, so every
 timed region here ends by synchronising each CUDA device that holds one of
@@ -12,10 +14,12 @@ the result's tensors; results on the CPU need nothing.
 
 import contextlib
 import os
+import tempfile
 import time
 
 import torch
 
+from .._build import span  # noqa: F401  (re-export)
 from ..parallel.chunked import _tree_leaves as _leaves
 
 
@@ -77,16 +81,24 @@ def columns_per_second(f, *args, columns=None, iters=5, warmup=1, **kwargs):
 
 
 @contextlib.contextmanager
-def trace(log_dir='/tmp/xparcel_trace'):
+def trace(log_dir=None):
     """Profiler trace (host, and the device when there is one) around a
     block::
 
-        with utils.trace('/tmp/tr'):
+        with utils.trace('traces'):
             run(dat)
 
-    Writes ``trace_<pid>_<ns>.json`` into ``log_dir``: a Chrome trace, for
-    Perfetto or ``chrome://tracing``.  Yields ``log_dir``."""
+    Writes ``trace_<pid>_<ns>.json`` into ``log_dir`` (None: an
+    ``xparcel_trace`` directory under ``tempfile.gettempdir()``, which
+    follows ``TMPDIR``): a Chrome trace, for Perfetto or
+    ``chrome://tracing``.  Besides the host's operations, runtime calls and
+    the device's kernels and copies, it holds the program's ``xparcel.*``
+    spans (:func:`span`): the Dataset surface's lower, to_device, compute,
+    to_host and lift, the fused pipelines and their outputs, each parcel
+    prep, the pre-pass and both kernels.  Yields ``log_dir``."""
     from torch.profiler import ProfilerActivity, profile
+    if log_dir is None:
+        log_dir = os.path.join(tempfile.gettempdir(), 'xparcel_trace')
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)

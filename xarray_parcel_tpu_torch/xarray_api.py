@@ -51,6 +51,7 @@ from . import parcels as _parcels
 from . import pipeline as _pipeline
 from . import profile as _profile
 from . import thermo as _thermo
+from ._build import span
 from ._device import resolve_device, to_tensor
 from .adiabat import load_moist_adiabat_lookups  # noqa: F401  (re-export)
 from .api import (interp1d_numba, lookup_tables_loaded,  # noqa: F401
@@ -457,8 +458,9 @@ def _run_columns(core, tables, dat, vert_dim, variables, dtype,
 
         def run(d):
             return core(d, copies.on(next(iter(d.values())).device))
-    fields, batch_dims = from_dataset(dat, vert_dim=vert_dim,
-                                      variables=variables, dtype=dtype)
+    with span('xparcel.dataset.lower'):
+        fields, batch_dims = from_dataset(dat, vert_dim=vert_dim,
+                                          variables=variables, dtype=dtype)
     if (mesh is not None or stream_columns) and not batch_dims:
         raise ValueError(
             'mesh=/stream_columns= need at least one non-vertical (batch) '
@@ -487,11 +489,17 @@ def _run_columns(core, tables, dat, vert_dim, variables, dtype,
     else:
         # Subset-dim fields cross at their own size (a 1-D pressure
         # coordinate as L floats) and are broadcast on the device.
-        out = _grid(to_host(run(_columns(to_device(fields, device),
-                                         batch_shape, vert_names))),
-                    batch_shape)
+        with span('xparcel.dataset.to_device'):
+            cols = _columns(to_device(fields, device), batch_shape,
+                            vert_names)
+        with span('xparcel.dataset.compute'):
+            out = run(cols)
+        del cols                # the inputs leave the card before the copy
+        with span('xparcel.dataset.to_host'):
+            out = _grid(to_host(out), batch_shape)
     coords = {d: dat.coords[d] for d in batch_dims if d in dat.coords}
-    return to_dataset(out, batch_dims, coords=coords, vert_dim=vert_dim)
+    with span('xparcel.dataset.lift'):
+        return to_dataset(out, batch_dims, coords=coords, vert_dim=vert_dim)
 
 
 def _torch_dtype(dtype):
