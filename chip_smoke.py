@@ -3,14 +3,16 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``xarray_parcel_tpu_torch/csrc`` with
-``nvcc`` (the CAPE/CIN solve ``fused_cape.cu`` and the diagnostics tail
-``diag_tail.cu``; ptxas's registers and spills are printed), builds the
-moist-adiabat coefficients on the card, holds each kernel against its plain
-PyTorch twin (float64 and float32 on hard columns of 90 levels, and of 33
-and 137 levels with the hard cases across the lanes 31/32 and 63/64 of the
-warp that strides over a column; the solve also with its profile tracks),
-then times both at the main path's shape against their bound and holds the
-timed outputs against each other there.
+``nvcc`` (the CAPE/CIN solve ``fused_cape.cu``, the diagnostics tail
+``diag_tail.cu`` and the solve's pre-pass ``prepass.cu``; ptxas's registers
+and spills are printed), builds the moist-adiabat coefficients on the card,
+holds the solve and the tail against their plain PyTorch twins (float64
+and float32 on hard columns of 90 levels, and of 33 and 137 levels with
+the hard cases across the lanes 31/32 and 63/64 of the warp that strides
+over a column; the solve also with its profile tracks), the pre-pass
+through the solve's arguments, then times all three at the main path's
+shape against their bound and holds the timed outputs against each other
+there.
 Then it drives the public entry points -- ``fused_surface_cape_cin``,
 ``conv_properties_fused``, ``min_conv_properties_fused`` and
 ``storm_proxies`` -- at 786,432
@@ -97,6 +99,8 @@ SOLVE_OPTIONS = [dict(), dict(virtual_temperature_correction=False),
                       lcl_interp='linear', pos_cape_neg_cin=False,
                       post_zero_cin=True)]
 GOLDEN = dict(cape=230.20, cin=-58.07, tol=0.5)
+# The pre-pass kernel against its twin, as shares of each output's scale.
+PREPASS_TOL = {torch.float32: 1e-5, torch.float64: 1e-11}
 F64_ATOL = 1e-6
 # float32 budget (docs/performance.md): relative to each output's scale.
 F32_P95, F32_MAX, F32_NAN_FLIPS = 1e-4, 5e-4, 0.01
@@ -1021,6 +1025,23 @@ def kernel_args(p, t, td, tables):
             scalars, k0)
 
 
+def prepass_args(n, L=LEVELS, seed=5, dtype=torch.float64, device='cpu'):
+    """The pre-pass's arguments without the table, (p, p0, t0, td0): the
+    four parcel variants of :func:`hard_columns` (NaN parcels, parcels too
+    hot for the adiabat family, most-unstable columns led by NaN levels,
+    all-NaN columns), with parcels too cold for the family in the first
+    five columns and NaN first levels in the next five."""
+    p, t, td = (torch.as_tensor(x, dtype=dtype, device=device)
+                for x in hard_columns(n, L=L, seed=seed))
+    cols, parcel = variant_columns(p, t, td)
+    p = cols['pressure'].clone()
+    p0, t0, td0 = (parcel[k].clone()
+                   for k in ('pressure', 'temperature', 'dewpoint'))
+    t0[:5] -= 150.0
+    p[5:10, :3] = torch.nan
+    return p, p0, t0, td0
+
+
 def grid_dataset(dat_np, td, grid, pressure_1d=False):
     """The synthetic soundings as a host Dataset laid out as model output
     is: level variables (level, y, x) with the level dim leading, surface
@@ -1154,6 +1175,28 @@ def compare(name, got, want, dtype_name):
     return worst
 
 
+def compare_prepass(name, got, want):
+    """Hold the pre-pass's (row, scalars, k0) against the twin's: k0 and
+    the NaN patterns equal, the row within ``PREPASS_TOL`` of its largest
+    magnitude and each scalar within it of its own.  Returns the largest
+    error over scale; raises on a miss."""
+    if not torch.equal(got[2], want[2]):
+        raise AssertionError(f'{name}: k0 differs')
+    tol = PREPASS_TOL[want[0].dtype]
+    named = [('row', got[0], want[0])] + [
+        (k, got[1][:, i], want[1][:, i]) for i, k in enumerate(fused.SCALARS)]
+    worst = 0.0
+    for key, a, b in named:
+        if not torch.equal(torch.isnan(a), torch.isnan(b)):
+            raise AssertionError(f'{name}/{key}: NaN patterns differ')
+        scale = b.nan_to_num().abs().max().item() or 1.0
+        rel = (a - b).nan_to_num().abs().max().item() / scale
+        if rel > tol:
+            raise AssertionError(f'{name}/{key}: {rel:.3g} of scale > {tol}')
+        worst = max(worst, rel)
+    return worst
+
+
 def bound(nbytes, ops, dtype):
     """The least time the card could take for work that moves ``nbytes``
     and does ``ops`` operations of ``dtype``: ``(ms, 'bytes' or
@@ -1176,6 +1219,21 @@ def solve_work(p, t, td, row, scalars, k0):
     nbytes += len(fused.OUTPUTS) * p.shape[0] * p.element_size()
     slots = int(torch.isfinite(p).sum()) + p.shape[0]
     return nbytes, slots * (3 * (row.shape[-1] // adiabat.N_SEG) + 70)
+
+
+def prepass_work(p, k0):
+    """Bytes and operations of the pre-pass on these columns: the parcel
+    state and the levels up to each column's first finite pressure read
+    once, the table once, the row, scalars and k0 written once; about
+    1,800 operations a column (30 LCL iterations of 12, 12 RK4 substeps of
+    four 22-operation lapse rates and their 16, the row's 4 a coefficient;
+    a transcendental counted as one)."""
+    B, item = p.shape[0], p.element_size()
+    nbytes = item * (3 * B + int(k0.sum()) + B
+                     + adiabat.N_CURVES * adiabat.N_COEF
+                     + B * (adiabat.N_COEF + len(fused.SCALARS))) + 4 * B
+    ops = 30 * 12 + 12 * (4 * 22 + 16) + 4 * adiabat.N_COEF
+    return nbytes, B * ops
 
 
 def tail_work(p, t, td, h):
@@ -1372,7 +1430,7 @@ def main():
         f'CUDA {torch.version.cuda}')
     log(smi)
 
-    # 2. Kernel library: both kernels, one nvcc per source.
+    # 2. Kernel library: every kernel, one nvcc per source.
     path, build_s = _build.build(verbose=True)
     _build.load_library()
     log(f'[2 build] {path} in {build_s:.2f} s (0.00 = already built)')
@@ -1505,6 +1563,22 @@ def main():
         f'kernel vs twin there within the float32 budget, max |diff| '
         f'{full_err:.3g}')
     del margs, got, want
+    # The pre-pass, kernel against plain twin, on the surface parcels.
+    pc = p.contiguous()
+    pargs = (pc, *(x[:, 0].contiguous() for x in (pc, t, td)))
+    pplain_a, want = cuda_ms(lambda: fused._prepass_twin(*pargs, tab32), 3)
+    pkern_a, got = cuda_ms(lambda: fused.prepass_kernel(*pargs, tab32), 10)
+    pkern_b, _ = cuda_ms(lambda: fused.prepass_kernel(*pargs, tab32), 10)
+    pplain_b, _ = cuda_ms(lambda: fused._prepass_twin(*pargs, tab32), 3)
+    prepass_ms = (pkern_a + pkern_b) / 2
+    prepass_err = compare_prepass('prepass/main shape', got, want)
+    prepass_bound = bound(*prepass_work(pargs[0], got[2]), torch.float32)
+    log(f'[4 timing] pre-pass {MAIN_COLUMNS} columns float32: kernel '
+        f'{pkern_a:.3f}/{pkern_b:.3f} ms, plain twin {pplain_a:.3f}/'
+        f'{pplain_b:.3f} ms, bound {prepass_bound[0]:.3f} ms by '
+        f'{prepass_bound[1]} ({smi}); k0 and NaN patterns equal, rows and '
+        f'scalars within {prepass_err:.3g} of scale')
+    del pargs, pc, got, want
     targs = tuple(x.contiguous() for x in (p, t, td, h))
     tplain_a, want = cuda_ms(lambda: diag._diag_body(*targs), 3)
     tkern_a, got = cuda_ms(lambda: diag.diag_kernel(*targs), 10)
@@ -1535,12 +1609,16 @@ def main():
     outs, launches = {}, {'fused_cape_cin': 0, 'diag_tail': 0}
     for name, (run, want_counts) in paths.items():
         fused.cape_cin_kernel.launches = diag.diag_kernel.launches = 0
+        fused.prepass_kernel.launches = 0
         out = run()
         torch.cuda.synchronize()
         counts = (fused.cape_cin_kernel.launches, diag.diag_kernel.launches)
         if counts != want_counts:
             raise AssertionError(f'{name}: (solve, tail) launches {counts}, '
                                  f'want {want_counts}')
+        if fused.prepass_kernel.launches != counts[0]:
+            raise AssertionError(f'{name}: {fused.prepass_kernel.launches} '
+                                 f'pre-pass launches for {counts[0]} solves')
         launches['fused_cape_cin'] += counts[0]
         launches['diag_tail'] += counts[1]
         outs[name] = {**out[0], **out[1]} if name == 'surface' else out
@@ -2286,6 +2364,17 @@ def main():
         'bound_ms': tail_bound[0],
         'bound_by': tail_bound[1],
         'library_ms': None,     # nor the tail
+    }, {
+        'name': 'parcel_prepass',
+        'route': 'cuda',
+        'source': 'xarray_parcel_tpu_torch/csrc/prepass.cu',
+        'replaces': None,       # XLA fuses the JAX package's pre-pass
+        'max_rel_err_float32': prepass_err,
+        'ms': prepass_ms,
+        'plain_ms': (pplain_a + pplain_b) / 2,
+        'bound_ms': prepass_bound[0],
+        'bound_by': prepass_bound[1],
+        'library_ms': None,
     }]}
     log(json.dumps(record))
     log(json.dumps({'ok': True, 'device': {

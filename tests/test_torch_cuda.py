@@ -14,6 +14,7 @@ import torch
 import chip_smoke
 from xarray_parcel_tpu_torch import AdiabatTables, adiabat, fused
 from xarray_parcel_tpu_torch import diagnostics as diag
+from xarray_parcel_tpu_torch import pipeline as xt_pipeline
 from xarray_parcel_tpu_torch import xarray_api as xapi
 from xarray_parcel_tpu_torch.parallel import stream_map
 
@@ -120,6 +121,62 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(device, coeffs):
         fused.cape_cin_kernel(p, t, td, row[:, :40], scalars, k0)
 
 
+@pytest.mark.parametrize('dtype', [torch.float64, torch.float32])
+def test_prepass_kernel_matches_twin(device, coeffs, dtype):
+    """Equal k0 and NaN patterns, rows and scalars within 1e-5 (float32)
+    and 1e-11 (float64) of scale (chip_smoke.compare_prepass), on
+    chip_smoke.prepass_args: the hard columns' parcels, NaN parcels,
+    parcels outside the adiabat family (NaN rows), NaN-led pressure
+    columns (k0 > 0) and all-NaN columns; 4 x 301 columns, not a multiple
+    of the columns a block holds."""
+    tables = AdiabatTables(coeffs.to(dtype))
+    args = chip_smoke.prepass_args(301, L=57, seed=3, dtype=dtype,
+                                   device=device)
+    before = fused.prepass_kernel.launches
+    row, scalars, k0 = fused.prepass_kernel(*args, tables)
+    torch.cuda.synchronize()
+    assert fused.prepass_kernel.launches == before + 1
+    want = fused._prepass_twin(*args, tables)
+    chip_smoke.compare_prepass('prepass', (row, scalars, k0), want)
+    assert (k0 > 0).any() and torch.isnan(want[0]).all(-1).any()
+
+
+def test_prepass_empty_batch_and_rejects(device, coeffs):
+    """B = 0 launches nothing; the wrapper raises on a mixed dtype, a
+    parcel of another length, a parcel on another device and a device
+    that is neither CUDA nor the CPU."""
+    tables = AdiabatTables(coeffs)
+    p, p0, t0, td0 = chip_smoke.prepass_args(20, L=30, device=device)
+    before = fused.prepass_kernel.launches
+    row, scalars, k0 = fused.prepass_kernel(p[:0], p0[:0], t0[:0], td0[:0],
+                                            tables)
+    assert fused.prepass_kernel.launches == before
+    assert (row.shape, scalars.shape, k0.shape) == ((0, 42), (0, 6), (0,))
+    with pytest.raises(TypeError):
+        fused.prepass_kernel(p, p0.float(), t0, td0, tables)
+    with pytest.raises(TypeError):
+        fused.prepass_kernel(p, p0.cpu(), t0, td0, tables)
+    with pytest.raises(ValueError):
+        fused.prepass_kernel(p, p0[:-1], t0, td0, tables)
+    with pytest.raises(ValueError):
+        fused.prepass_kernel(*(x.to('meta') for x in (p, p0, t0, td0)),
+                             tables)
+    assert fused.prepass_kernel.launches == before
+
+
+def test_prepass_launches_per_pipeline(device, coeffs):
+    """One pre-pass launch a solve: 3 a conv_properties_fused call, 1 a
+    min_conv_properties_fused call."""
+    tables = AdiabatTables(coeffs.to(torch.float32))
+    dat_np, _ = chip_smoke.synthetic(500, L=40)
+    dat = {k: torch.as_tensor(v, device=device) for k, v in dat_np.items()}
+    for run, want in ((xt_pipeline.conv_properties_fused, 3),
+                      (xt_pipeline.min_conv_properties_fused, 1)):
+        before = fused.prepass_kernel.launches
+        run(dat, tables=tables)
+        assert fused.prepass_kernel.launches == before + want
+
+
 @pytest.mark.parametrize('L', WIDTHS)
 @pytest.mark.parametrize('dtype', [torch.float64, torch.float32])
 def test_profile_tracks_match_twin(device, coeffs, dtype, L):
@@ -160,9 +217,10 @@ def test_solve_gradient_matches_twin(device, coeffs):
         loss = chip_smoke.finite_sum(res, ('cape', 'cin', 'lifted_index'))
         return torch.autograd.grad(loss, leaves)
 
-    before = fused.cape_cin_kernel.launches
+    before = fused.cape_cin_kernel.launches, fused.prepass_kernel.launches
     got = grads(device, tables)
-    assert fused.cape_cin_kernel.launches == before + 1
+    assert (fused.cape_cin_kernel.launches,
+            fused.prepass_kernel.launches) == (before[0] + 1, before[1] + 1)
     want = grads('cpu', AdiabatTables(coeffs.cpu()))
     chip_smoke.compare_grads(
         'solve gradient', got, want,

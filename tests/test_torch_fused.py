@@ -228,6 +228,30 @@ def test_wrapper_runs_the_twin_only_for_cpu_tensors(tables):
         tfused.cape_cin_kernel(*meta)
 
 
+@pytest.mark.parametrize('dtype', [torch.float64, torch.float32])
+def test_prepass_function_returns_the_twin(tables, dtype):
+    """On CPU tensors the pre-pass's wrapper and its autograd.Function
+    return the plain twin's values exactly, and launch nothing."""
+    tab = tables.astype(dtype)
+    args = chip_smoke.prepass_args(60, L=24, dtype=dtype)
+    want = tfused._prepass_twin(*args, tab)
+    before = tfused.prepass_kernel.launches
+    leaves = [x.clone().requires_grad_() for x in args[1:]]
+    for got in (tfused.prepass_kernel(*args, tab),
+                tfused.prepass(*args, tab),
+                tfused.ParcelPrepass.apply(args[0], *leaves, tab)):
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype
+            torch.testing.assert_close(a.detach(), b, equal_nan=True,
+                                       rtol=0, atol=0)
+    assert tfused.prepass_kernel.launches == before
+    k0 = want[2]
+    assert (k0 > 0).any() and torch.isnan(want[0]).all(-1).any()
+    assert torch.isnan(want[1][:, 0]).any()
+    with pytest.raises(ValueError, match='no pre-pass kernel'):
+        tfused.prepass_kernel(*(x.to('meta') for x in args), tab)
+
+
 def test_float32_twin_within_budget(jax_tables):
     """The float32 plain twin against the float64 JAX solve: the fp32
     budget of docs/performance.md (p95 <= 1e-4, max <= 5e-4 of each

@@ -245,6 +245,79 @@ def test_solve_function_with_profile_and_all_inputs(tables):
     assert res['cape'].grad_fn is None
 
 
+def prepass_loss(row, scalars):
+    """A weighted sum of the pre-pass's float outputs, NaN entries
+    dropped."""
+    w = torch.linspace(0.5, 1.5, row.shape[-1], dtype=row.dtype)
+    ws = torch.linspace(-1.0, 2.0, scalars.shape[-1], dtype=row.dtype)
+    return ((torch.nan_to_num(row) * w).sum() +
+            (torch.nan_to_num(scalars) * ws).sum())
+
+
+def test_prepass_function_gradient_is_the_twins(tables):
+    """The pre-pass Function's gradient to the parcel's pressure,
+    temperature and dewpoint equals autograd through the plain pre-pass,
+    on columns with NaN parcels and parcels outside the adiabat family."""
+    p, t, td = (torch.tensor(x) for x in chip_smoke.hard_columns(40, L=20,
+                                                                 seed=4))
+
+    def grads(fn):
+        leaves = [x[:, 0].clone().requires_grad_() for x in (p, t, td)]
+        row, scalars, _ = fn(p, *leaves, tables)
+        return torch.autograd.grad(prepass_loss(row, scalars), leaves)
+
+    got = grads(tfused.ParcelPrepass.apply)
+    want = grads(tfused._prepass_twin)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, equal_nan=True, rtol=0, atol=0)
+    assert all((g.nan_to_num() != 0).any() for g in got)
+
+
+def test_prepass_function_gradcheck(tables):
+    """float64 gradcheck of the pre-pass Function's rows and scalars
+    against the parcel state, on valid parcels inside the family."""
+    p, t, td = (torch.tensor(x) for x in chip_smoke.hard_columns(40, L=20,
+                                                                 seed=4))
+    keep = torch.isfinite(p).all(-1) & torch.isfinite(t).all(-1) & \
+        torch.isfinite(td).all(-1) & (t[:, 0] < 310.0)
+    p, t, td = (x[keep][:3] for x in (p, t, td))
+    state = tuple(x[:, 0].clone().requires_grad_() for x in (p, t, td))
+    assert torch.autograd.gradcheck(
+        lambda *x: tfused.ParcelPrepass.apply(p, *x, tables)[:2], state)
+
+
+def test_surface_parcel_gradient_unchanged(tables):
+    """``fused_surface_cape_cin``'s gradients, with the pre-pass behind its
+    Function, equal those of autograd through the plain pre-pass into
+    ``CapeCinSolve``."""
+    p, t, td = (torch.tensor(x) for x in chip_smoke.hard_columns(40, L=20,
+                                                                 seed=9))
+
+    def grads(fused_path):
+        leaves = [x.clone().requires_grad_() for x in (p, t, td)]
+        if fused_path:
+            res, sol = tfused.fused_surface_cape_cin(
+                *leaves, tables=tables, with_lifted_index=True)
+            out = {**res, **sol}
+        else:
+            lp, lt, ltd = leaves
+            args = tfused._prepass_twin(lp, lp[:, 0], lt[:, 0], ltd[:, 0],
+                                        tables)
+            block = tfused.CapeCinSolve.apply(*leaves, *args[:2], args[2],
+                                              False)
+            out = dict(zip(tfused.OUTPUTS, block))
+        assert in_graph(out['cape'], 'ParcelPrepass') == fused_path
+        loss = chip_smoke.finite_sum(out, ('cape', 'cin', 'lifted_index',
+                                           'lfc_pressure', 'el_pressure'))
+        return torch.autograd.grad(loss, leaves)
+
+    got, want = grads(True), grads(False)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, equal_nan=True, rtol=1e-12,
+                                   atol=1e-12 * b.nan_to_num().abs().max())
+    assert (got[1][:, 0].nan_to_num() != 0).any()
+
+
 def test_grad_through_tail_kernel():
     """The tail's Function against ``jax.grad`` of the JAX package's
     ``_diag_body`` on the hard tail columns."""

@@ -13,9 +13,11 @@ On a CUDA tensor the solve runs in the hand-written kernel
 levels); on a CPU tensor it runs in ``_column_program``, the same solve as
 vectorised torch on (B, L) tensors.
 The O(B) pre-pass (LCL fixed point, curve index, coefficient-row blend,
-first-valid level) is plain torch on either device, so gradients reach the
-parcel state through it.  The kernel's gradient is the twin's VJP
-(:class:`CapeCinSolve`).
+first-valid level) runs likewise: on a CUDA tensor in one launch of
+``csrc/prepass.cu`` (a thread per column), on a CPU tensor in its plain
+twin ``_prepass_twin``.  Each kernel's gradient is its twin's VJP
+(:class:`ParcelPrepass`, :class:`CapeCinSolve`), so gradients reach the
+parcel state through the pre-pass.
 
 The solve takes four options with the JAX package's meaning
 (:func:`solve_options`); the kernel's default instance compiles them away
@@ -263,9 +265,11 @@ class CapeCinSolve(torch.autograd.Function):
         return (*got, None, None, None)
 
 
-def prepass(p, p0, t0, td0, tables):
-    """The O(B) pre-pass: per-column kernel arguments from the flat (B, L)
-    pressure columns and (B,) parcel state.  Returns (row, scalars, k0)."""
+def _prepass_twin(p, p0, t0, td0, tables):
+    """The pre-pass as plain torch ops (the kernel's twin): the LCL of the
+    parcel, its mixing ratio, the curve index, the blended coefficient row
+    and the first valid level.  Returns (row, scalars, k0) as
+    :func:`prepass_kernel` does."""
     lcls = lcl(p0, t0, td0)
     lcl_p = lcls['lcl_pressure']
     w0 = thermo.mixing_ratio(t0, td0, p0)
@@ -276,6 +280,88 @@ def prepass(p, p0, t0, td0, tables):
                           -1).to(p.dtype)
     k0 = first_valid_index(p).to(torch.int32)
     return row, scalars, k0
+
+
+def prepass_kernel(p, p0, t0, td0, tables):
+    """The pre-pass on the flat (B, L) pressure columns p and the (B,)
+    parcel state p0/t0/td0.  Returns the solve's per-column arguments: row
+    (B, K), the parcel's blended coefficient row (all NaN outside the
+    adiabat family), scalars (B, 6) in :data:`SCALARS` order (the LCL's
+    NaN where the parcel state holds a NaN) and k0 (B,) int32, the first
+    level of finite pressure.
+
+    CUDA tensors go to the hand-written kernel, the library's
+    ``parcel_prepass_<dtype>`` (``prepass_kernel.launches`` counts each
+    launch): p, the parcel state and ``tables.coeffs`` must then share one
+    float dtype and the device.  CPU tensors go to the plain twin.
+    """
+    if p.device.type == 'cpu':
+        return _prepass_twin(p, p0, t0, td0, tables)
+    if p.device.type != 'cuda':
+        raise ValueError(f'no pre-pass kernel for device {p.device}')
+    coeffs = tables.coeffs
+    if p.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f'kernel takes float32 or float64, not {p.dtype}')
+    for x in (p0, t0, td0, coeffs):
+        if x.dtype != p.dtype or x.device != p.device:
+            raise TypeError('pre-pass inputs must share dtype and device')
+    if p.dim() != 2 or any(x.shape != p.shape[:1] for x in (p0, t0, td0)):
+        raise ValueError('pre-pass takes (B, L) pressure and (B,) parcels')
+    if coeffs.shape != (adiabat.N_CURVES, adiabat.N_COEF):
+        raise ValueError(f'coefficient table is {tuple(coeffs.shape)}, not '
+                         f'{(adiabat.N_CURVES, adiabat.N_COEF)}')
+    B, L = p.shape
+    ins = [x.contiguous() for x in (p, p0, t0, td0, coeffs)]
+    row = torch.empty((B, adiabat.N_COEF), dtype=p.dtype, device=p.device)
+    scalars = torch.empty((B, len(SCALARS)), dtype=p.dtype, device=p.device)
+    k0 = torch.empty((B,), dtype=torch.int32, device=p.device)
+    if B > 0:
+        suffix = 'f32' if p.dtype == torch.float32 else 'f64'
+        launch(f'parcel_prepass_{suffix}', p.device,
+               [*(x.data_ptr() for x in ins), row.data_ptr(),
+                scalars.data_ptr(), k0.data_ptr()], B, L)
+        count_launch(prepass_kernel)
+    return row, scalars, k0
+
+
+prepass_kernel.launches = 0
+
+
+class ParcelPrepass(torch.autograd.Function):
+    """:func:`prepass_kernel` with a gradient to the parcel state: the
+    forward launches the kernel (the twin on a CPU tensor); the backward
+    recomputes :func:`_prepass_twin` from the saved inputs and returns its
+    VJP.  The pressure columns, k0 and the table get no gradient."""
+
+    @staticmethod
+    def forward(ctx, p, p0, t0, td0, tables):
+        ctx.tables = tables
+        ctx.save_for_backward(p, p0, t0, td0)
+        row, scalars, k0 = prepass_kernel(p, p0, t0, td0, tables)
+        ctx.mark_non_differentiable(k0)
+        return row, scalars, k0
+
+    @staticmethod
+    def backward(ctx, g_row, g_scalars, _):
+        p, *state = ctx.saved_tensors
+        got = twin_vjp(
+            lambda *x: _prepass_twin(p, *x, ctx.tables)[:2], state,
+            ctx.needs_input_grad[1:4], (g_row, g_scalars))
+        return (None, *got, None)
+
+
+def prepass(p, p0, t0, td0, tables):
+    """The O(B) pre-pass: per-column kernel arguments from the flat (B, L)
+    pressure columns and (B,) parcel state.  Returns (row, scalars, k0), as
+    :func:`prepass_kernel` does.
+
+    With grad mode on and a parcel input requiring grad, it goes through
+    :class:`ParcelPrepass`; otherwise it calls :func:`prepass_kernel`
+    directly."""
+    if torch.is_grad_enabled() and any(x.requires_grad
+                                       for x in (p0, t0, td0)):
+        return ParcelPrepass.apply(p, p0, t0, td0, tables)
+    return prepass_kernel(p, p0, t0, td0, tables)
 
 
 def fused_cape_cin(pressure, temperature, dewpoint, parcel_pressure=None,
@@ -296,9 +382,12 @@ def fused_cape_cin(pressure, temperature, dewpoint, parcel_pressure=None,
     ``lcl_interp``, ``pos_cape_neg_cin``, ``post_zero_cin``); with the
     correction off the LFC/EL temperatures are real temperatures.
 
-    With grad mode on and an input requiring grad, the solve goes through
-    :class:`CapeCinSolve` and every output is differentiable; otherwise it
-    calls :func:`cape_cin_kernel` directly.
+    With grad mode on and an input requiring grad, the pre-pass and the
+    solve go through :class:`ParcelPrepass` and :class:`CapeCinSolve` and
+    every output is differentiable; otherwise they call
+    :func:`prepass_kernel` and :func:`cape_cin_kernel` directly.  On a
+    CUDA tensor the parcel state and the table must be in the columns'
+    dtype.
     """
     options = solve_options(**options)
     p, t, td = pressure, temperature, dewpoint
@@ -310,7 +399,9 @@ def fused_cape_cin(pressure, temperature, dewpoint, parcel_pressure=None,
                                       parcel_dewpoint) if x is not None))
     L = env[-1]
     full = batch_shape + (L,)
-    p = p.expand(full).reshape(-1, L)
+    # One contiguous copy of a broadcast pressure, for the pre-pass and the
+    # solve alike.
+    p = p.expand(full).reshape(-1, L).contiguous()
     t = t.expand(full).reshape(-1, L)
     td = td.expand(full).reshape(-1, L)
 
@@ -323,7 +414,7 @@ def fused_cape_cin(pressure, temperature, dewpoint, parcel_pressure=None,
 
     with span('xparcel.prep.prepass'):
         row, scalars, k0 = prepass(p, p0, t0, td0, tables)
-    args = (p.contiguous(), t.contiguous(), td.contiguous(), row, scalars)
+    args = (p, t.contiguous(), td.contiguous(), row, scalars)
     with span('xparcel.kernel.solve'):
         if torch.is_grad_enabled() and any(x.requires_grad for x in args):
             out = CapeCinSolve.apply(*args, k0, with_profile, options)

@@ -10,9 +10,9 @@ The modular pipelines ``conv_properties`` and ``min_conv_properties``
 build every parcel profile (``cape.cape_cin``) and are plain torch on
 either device.  In the fused ones, ``conv_properties_fused`` and
 ``min_conv_properties_fused``, each CAPE/CIN solve runs on CUDA tensors in
-the ``csrc/fused_cape.cu`` kernel and the diagnostics tail (t850/td850,
-lapse rate and t500, freezing and melting levels) in the
-``csrc/diag_tail.cu`` kernel, once per call.
+the ``csrc/prepass.cu`` and ``csrc/fused_cape.cu`` kernels and the
+diagnostics tail (t850/td850, lapse rate and t500, freezing and melting
+levels) in the ``csrc/diag_tail.cu`` kernel, once per call.
 """
 
 import torch
