@@ -17,8 +17,8 @@ math stays off, because the CAPE/CIN solve's selections depend on IEEE
 ``exp``/``log``/divide and on NaN semantics.
 
 What the program records of itself lives here too: the kernel wrappers'
-launch counters (:func:`count_launch`) and the ``xparcel.*`` spans
-(:func:`span`).
+launch counters (:func:`count_launch`), the other counters
+(:func:`count`) and the ``xparcel.*`` spans (:func:`span`).
 """
 
 import contextlib
@@ -156,13 +156,19 @@ def kernels_from(csrc):
         _active = before
 
 
+def count(owner, name, n=1):
+    """Add ``n`` to ``owner.<name>``, a counter kept as an attribute.
+    Under a lock: ``parallel.sharded_map`` and ``stream_map(mesh=)`` call
+    the program from one thread per mesh entry, and an unguarded ``+=``
+    would lose counts."""
+    with _count_lock:
+        setattr(owner, name, getattr(owner, name) + n)
+
+
 def count_launch(wrapper):
     """Add one to ``wrapper.launches``, the count of kernel launches a
-    wrapper keeps.  Under a lock: ``parallel.sharded_map`` and
-    ``stream_map(mesh=)`` launch from one thread per mesh entry, and an
-    unguarded ``+=`` would lose counts."""
-    with _count_lock:
-        wrapper.launches += 1
+    wrapper keeps (:func:`count`)."""
+    count(wrapper, 'launches')
 
 
 _NO_SPAN = contextlib.nullcontext()

@@ -9,10 +9,16 @@ so a batch that does not fit whole runs in chunks that do.  The JAX
 package sequences the chunks with ``lax.map`` inside one compiled program;
 eager torch needs no program, so here it is a plain Python loop, with the
 same numerics as calling the program per chunk and concatenating.
+Under ``torch.profiler`` each chunk's slicing and padding is the span
+``xparcel.chunked.slice``, and the slicing off of the padding and the
+final concatenation are ``xparcel.chunked.gather``; the column program
+runs outside both.
 """
 
 import numpy as np
 import torch
+
+from .._build import count, span
 
 
 def pad_fill(dtype, float_fill=np.nan):
@@ -78,7 +84,8 @@ def chunked(fn, chunk_columns=1 << 18):
     only ever sees one shape.
 
     Numerics are identical to running ``fn`` on each padded chunk and
-    concatenating.
+    concatenating.  The wrapper counts, over all its calls, the chunks it
+    ran (``.chunks``) and the padding rows computed (``.padded_rows``).
     """
     def wrapped(dat):
         if not dat:
@@ -93,16 +100,22 @@ def chunked(fn, chunk_columns=1 << 18):
         C = max(1, min(int(chunk_columns), B))
         outs = []
         for start in range(0, max(B, 1), C):
-            chunk = {k: v[start:start + C] for k, v in dat.items()}
-            rows = min(C, B - start)
-            if rows < C:
-                chunk = {k: _pad_rows(v, C - rows) for k, v in chunk.items()}
-            out = fn(chunk)
-            if rows < C:
-                out = _map_leaves(lambda y: y[:rows], out)
-            outs.append(out)
-        return _zip_leaves(torch.cat, outs)
+            with span('xparcel.chunked.slice'):
+                chunk = {k: v[start:start + C] for k, v in dat.items()}
+                rows = min(C, B - start)
+                if rows < C:
+                    chunk = {k: _pad_rows(v, C - rows)
+                             for k, v in chunk.items()}
+            outs.append(fn(chunk))
+            count(wrapped, 'chunks')
+            count(wrapped, 'padded_rows', C - rows)
+        with span('xparcel.chunked.gather'):
+            if rows < C:            # only the last chunk is padded
+                outs[-1] = _map_leaves(lambda y: y[:rows], outs[-1])
+            return _zip_leaves(torch.cat, outs)
 
+    wrapped.chunks = 0
+    wrapped.padded_rows = 0
     return wrapped
 
 
