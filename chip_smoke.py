@@ -4,27 +4,31 @@
 
 Builds the port's CUDA kernels from ``xarray_parcel_tpu_torch/csrc`` with
 ``nvcc`` (the CAPE/CIN solve ``fused_cape.cu``, the diagnostics tail
-``diag_tail.cu`` and the solve's pre-pass ``prepass.cu``; ptxas's registers
-and spills are printed), builds the moist-adiabat coefficients on the card,
-holds the solve and the tail against their plain PyTorch twins (float64
-and float32 on hard columns of 90 levels, and of 33 and 137 levels with
-the hard cases across the lanes 31/32 and 63/64 of the warp that strides
-over a column; the solve also with its profile tracks), the pre-pass
-through the solve's arguments, then times all three at the main path's
-shape against their bound and holds the timed outputs against each other
-there.
+``diag_tail.cu``, the solve's pre-pass ``prepass.cu`` and the neighbours
+``neighbors.cu``; ptxas's registers and spills are printed), builds the
+moist-adiabat coefficients on the card, holds the solve and the tail
+against their plain PyTorch twins (float64 and float32 on hard columns of
+90 levels, and of 33 and 137 levels with the hard cases across the lanes
+31/32 and 63/64 of the warp that strides over a column; the solve also
+with its profile tracks), the pre-pass through the solve's arguments,
+then times the first three at the main path's shape against their bound
+and holds the timed outputs against each other there.  The neighbours
+kernel is held to its twin bit for bit at the three device cells' shapes
+and timed there beside the twin, the two library scans alone and its
+bound.
 Then it drives the public entry points -- ``fused_surface_cape_cin``,
 ``conv_properties_fused``, ``min_conv_properties_fused`` and
 ``storm_proxies`` -- at 786,432
 columns x 90 levels in float32, counts each path's kernel launches and
 checks the outputs against the plain path on the CPU.  The modular
 pipelines ``conv_properties`` and ``min_conv_properties`` run at the same
-size (plain torch, no kernel launch), every column held against the fused
-pipelines, with their rates and peak memory (phase 6).  Gradients through
-the kernels' ``autograd.Function``s are held against the CPU twins' and
-central differences, and a forward plus backward of the surface solve is
-timed (phase 7).  Then the surfaces a user calls: the solve's four options,
-kernel against twin for each of six settings (phase 8);
+size (plain torch but the neighbours kernel), every column held against
+the fused pipelines, with their rates and peak memory (phase 6).
+Gradients through the kernels' ``autograd.Function``s are held against the
+CPU twins' and central differences, and a forward plus backward of the
+surface solve is timed (phase 7).  Then the surfaces a user calls: the
+solve's four options, kernel against twin for each of six settings (phase
+8);
 ``load_moist_adiabat_lookups(regenerate=True)`` on the card, its
 coefficients against ``build_spectral``'s and ``moist_lapse``'s table modes
 against the exact integrator (phase 9); a Dataset of 786,432 columns with
@@ -101,6 +105,11 @@ SOLVE_OPTIONS = [dict(), dict(virtual_temperature_correction=False),
 GOLDEN = dict(cape=230.20, cin=-58.07, tol=0.5)
 # The pre-pass kernel against its twin, as shares of each output's scale.
 PREPASS_TOL = {torch.float32: 1e-5, torch.float64: 1e-11}
+# The device cells' neighbours: (cell's deployment, columns, levels,
+# pressure the broadcast of one row).
+NEIGHBOR_SHAPES = (('era5_pl35', 1_038_240, 35, True),
+                   ('aus400_ml90', 786_432, 90, False),
+                   ('gencast_ens50_pl13', 5_191_200, 13, True))
 F64_ATOL = 1e-6
 # float32 budget (docs/performance.md): relative to each output's scale.
 F32_P95, F32_MAX, F32_NAN_FLIPS = 1e-4, 5e-4, 0.01
@@ -1042,6 +1051,87 @@ def prepass_args(n, L=LEVELS, seed=5, dtype=torch.float64, device='cpu'):
     return p, p0, t0, td0
 
 
+def neighbor_columns(n, L, seed=29, dtype=torch.float64, device='cpu'):
+    """(pressure, valid), each (n, L), for the neighbours kernel's hard
+    cases, by row in turn: all valid; a NaN-led prefix (NaN pressure, not
+    valid); an interior invalid run; all invalid; all NaN; a NaN pressure
+    under a True valid; tied (repeated) pressures; and unsorted pressures
+    with +-inf, scattered invalid levels, a NaN under a True valid and
+    ties.  Decreasing pressures elsewhere."""
+    rng = np.random.default_rng(seed)
+    p = -np.sort(-rng.uniform(5.0, 1050.0, (n, L)), axis=1)
+    valid = np.ones((n, L), bool)
+    kind = np.arange(n) % 8
+    a = rng.integers(0, L, n)
+    b = np.minimum(a + rng.integers(1, 6, n), L)
+    j = np.arange(L)
+    run = (j >= a[:, None]) & (j < b[:, None])
+    lead = (kind == 1)[:, None] & (j < a[:, None])
+    p[lead] = np.nan
+    valid[lead] = False
+    valid[(kind == 2)[:, None] & run] = False
+    valid[kind == 3] = False
+    p[kind == 4] = np.nan
+    valid[kind == 4] = False
+    nan_at = ((kind == 5) | (kind == 7))[:, None] & (j == a[:, None])
+    tie = ((kind == 6) | (kind == 7))[:, None] & run & (j > 0)
+    mixed = kind == 7
+    p[mixed] = rng.permutation(p[mixed].ravel()).reshape(-1, L)
+    p[mixed & (a % 3 == 0), -1] = np.inf
+    p[mixed & (a % 3 == 1), 0] = -np.inf
+    valid[mixed] = rng.random((int(mixed.sum()), L)) > 0.3
+    for k in range(1, L):           # a run of ties: each level its above's
+        p[tie[:, k], k] = p[tie[:, k], k - 1]
+    p[nan_at] = np.nan
+    valid[nan_at] = True
+    return (torch.as_tensor(p, dtype=dtype, device=device),
+            torch.as_tensor(valid, device=device))
+
+
+def same_bits(name, got, want):
+    """Hold each tensor of ``got`` to ``want``'s bit for bit, NaN where it
+    is NaN; raises on a miss."""
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a.shape != b.shape or a.dtype != b.dtype:
+            raise AssertionError(f'{name}[{i}]: {a.dtype} {tuple(a.shape)} '
+                                 f'vs {b.dtype} {tuple(b.shape)}')
+        na, nb = torch.isnan(a), torch.isnan(b)
+        if not torch.equal(na, nb):
+            raise AssertionError(f'{name}[{i}]: NaN patterns differ in '
+                                 f'{int((na != nb).sum())} places')
+        ints = torch.int64 if a.dtype == torch.float64 else torch.int32
+        off = int((a[~na].view(ints) != b[~nb].view(ints)).sum())
+        if off:
+            raise AssertionError(f'{name}[{i}]: {off} values differ')
+
+
+def neighbor_inputs(B, L, broadcast, device, seed=31):
+    """A device cell's neighbours inputs, float32 (pressure, valid), each
+    (B, L).  ``broadcast``: isobaric levels from 1000 hPa, the (B, L)
+    broadcast of one row as the ERA5 and ensemble cells hand it, each
+    column's levels below its surface pressure not valid; else
+    terrain-following columns from each surface pressure, contiguous, every
+    level valid, as in the Aus400 cell."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    ps = 700.0 + 350.0 * torch.rand(B, generator=g, device=device)
+    if broadcast:
+        levels = torch.linspace(1000.0, 3.0 if L > 13 else 50.0, L,
+                                device=device)
+        return levels.expand(B, L), levels <= ps[:, None]
+    p = ps[:, None] * torch.linspace(1.0, 0.12, L, device=device)
+    return p, torch.isfinite(p)
+
+
+def neighbors_work(p, valid):
+    """Bytes the neighbours kernel needs: the pressure read once (one row
+    where every row is that row), the mask once, prev and next written
+    once; it does no arithmetic."""
+    B, L = valid.shape
+    item = p.element_size()
+    rows = 1 if B > 1 and p.stride(0) == 0 else B
+    return rows * L * item + B * L + 2 * B * L * item, 0
+
+
 def grid_dataset(dat_np, td, grid, pressure_1d=False):
     """The synthetic soundings as a host Dataset laid out as model output
     is: level variables (level, y, x) with the level dim leading, surface
@@ -1579,6 +1669,42 @@ def main():
         f'{prepass_bound[1]} ({smi}); k0 and NaN patterns equal, rows and '
         f'scalars within {prepass_err:.3g} of scale')
     del pargs, pc, got, want
+    # The neighbours (parcels.bridge_neighbors): kernel against plain twin
+    # bit for bit, and the two library scans alone on inputs masked
+    # beforehand, at the device cells' shapes.
+    nb_rows = {}
+    for label, B, L, broadcast in NEIGHBOR_SHAPES:
+        np_, nv = neighbor_inputs(B, L, broadcast, dev)
+        lo = torch.where(nv, np_, torch.inf)
+        hi = torch.where(nv, np_, -torch.inf).flip(-1).contiguous()
+
+        def scans():
+            return torch.cummin(lo, -1), torch.cummax(hi, -1)
+
+        ntwin_a, want = cuda_ms(
+            lambda: parcels._bridge_neighbors_twin(np_, nv), 3)
+        nkern_a, got = cuda_ms(
+            lambda: parcels.bridge_neighbors_kernel(np_, nv), 10)
+        nlib_a, _ = cuda_ms(scans, 3)
+        nlib_b, _ = cuda_ms(scans, 3)
+        nkern_b, _ = cuda_ms(
+            lambda: parcels.bridge_neighbors_kernel(np_, nv), 10)
+        ntwin_b, _ = cuda_ms(
+            lambda: parcels._bridge_neighbors_twin(np_, nv), 3)
+        same_bits(f'neighbors/{label}', got, want)
+        nb_bound = bound(*neighbors_work(np_, nv), torch.float32)
+        nb_rows[label] = {
+            'columns': B, 'levels': L, 'broadcast': broadcast,
+            'ms': (nkern_a + nkern_b) / 2, 'plain_ms': (ntwin_a + ntwin_b) / 2,
+            'library_ms': (nlib_a + nlib_b) / 2, 'bound_ms': nb_bound[0],
+            'bound_by': nb_bound[1]}
+        log(f'[4 neighbors {label}] {B} x {L} float32 '
+            f'{"broadcast" if broadcast else "contiguous"} pressure: kernel '
+            f'{nkern_a:.3f}/{nkern_b:.3f} ms, plain twin {ntwin_a:.3f}/'
+            f'{ntwin_b:.3f} ms, torch.cummin + torch.cummax alone '
+            f'{nlib_a:.3f}/{nlib_b:.3f} ms, bound {nb_bound[0]:.3f} ms by '
+            f'{nb_bound[1]} ({smi}); bit-equal with the twin')
+        del np_, nv, lo, hi, got, want
     targs = tuple(x.contiguous() for x in (p, t, td, h))
     tplain_a, want = cuda_ms(lambda: diag._diag_body(*targs), 3)
     tkern_a, got = cuda_ms(lambda: diag.diag_kernel(*targs), 10)
@@ -1610,6 +1736,7 @@ def main():
     for name, (run, want_counts) in paths.items():
         fused.cape_cin_kernel.launches = diag.diag_kernel.launches = 0
         fused.prepass_kernel.launches = 0
+        parcels.bridge_neighbors_kernel.launches = 0
         out = run()
         torch.cuda.synchronize()
         counts = (fused.cape_cin_kernel.launches, diag.diag_kernel.launches)
@@ -1619,6 +1746,11 @@ def main():
         if fused.prepass_kernel.launches != counts[0]:
             raise AssertionError(f'{name}: {fused.prepass_kernel.launches} '
                                  f'pre-pass launches for {counts[0]} solves')
+        # One neighbours launch a fused pipeline call, none for the surface.
+        if parcels.bridge_neighbors_kernel.launches != (name != 'surface'):
+            raise AssertionError(
+                f'{name}: {parcels.bridge_neighbors_kernel.launches} '
+                f'neighbours launches')
         launches['fused_cape_cin'] += counts[0]
         launches['diag_tail'] += counts[1]
         outs[name] = {**out[0], **out[1]} if name == 'surface' else out
@@ -1672,7 +1804,8 @@ def main():
         f'{name} {rate:.4g} columns/s ({MAIN_COLUMNS / rate * 1e3:.2f} ms)'
         for name, rate in rates.items()) + f', float32, {smi}')
 
-    # 6. The modular path on the card: plain torch, no kernel launched.
+    # 6. The modular path on the card: plain torch, no kernel launched but
+    # the neighbours (mixed_layer's bridge_neighbors).
     modular = {
         'modular': (lambda: xt.conv_properties(dat, tables=tab32),
                     'pipeline', xt.conv_properties),
@@ -2375,6 +2508,14 @@ def main():
         'bound_ms': prepass_bound[0],
         'bound_by': prepass_bound[1],
         'library_ms': None,
+    }, {
+        'name': 'bridge_neighbors',
+        'route': 'cuda',
+        'source': 'xarray_parcel_tpu_torch/csrc/neighbors.cu',
+        'replaces': None,       # XLA scans the JAX package's neighbours
+        'bit_equal': True,
+        **nb_rows['aus400_ml90'],
+        'shapes': nb_rows,
     }]}
     log(json.dumps(record))
     log(json.dumps({'ok': True, 'device': {

@@ -12,21 +12,27 @@ copy of this tree with a kernel's block size changed.
 Then, at 786,432 columns (the ``chip_smoke.synthetic`` soundings, surface
 parcel) of the first width in ``--levels`` (90 by default), for the solve
 in float32 and float64 (also float32 with the profile tracks) and the tail
-in both, and for the solve and tail in float32 at every further width, it
-calls the wrappers ``fused.cape_cin_kernel`` and ``diagnostics.diag_kernel``
-with each tree's kernels (``_build.kernels_from``), holds each tree's
-outputs against the first tree's (float64: identical NaN patterns and
-1e-6; float32: the budget) and times each with CUDA events, the trees in
-turns (a b c ... c b a).  The last line is one JSON object: each tree's
-mean milliseconds per launch in each case, the case's bound
-(``chip_smoke.bound``) and the card's name and power limit.
+and the neighbours in both, and for the solve, the tail and the neighbours
+in float32 at every further width, it calls the wrappers
+``fused.cape_cin_kernel``, ``diagnostics.diag_kernel`` and
+``parcels.bridge_neighbors_kernel`` with each tree's kernels
+(``_build.kernels_from``), holds each tree's outputs against the first
+tree's (float64: identical NaN patterns and 1e-6; float32: the budget;
+the neighbours bit for bit) and times each with CUDA events, the trees in
+turns (a b c ... c b a).  The neighbours take contiguous terrain-following
+columns and, at each width in float32, the broadcast of one row of
+isobaric levels (``chip_smoke.neighbor_inputs``).  The last line is one
+JSON object: each tree's mean milliseconds per launch in each case, the
+case's bound (``chip_smoke.bound``) and the card's name and power
+limit.
 
 The solve's default options go through the library's
 ``fused_cape_cin_<dtype>`` entry points, which every tree has had since the
 first kernel, so older trees time as before.  The case with all four
 options set calls ``fused_cape_cin_flags_<dtype>``, which takes the flags
 word: a tree from before the options has no such entry point and is left
-out of that case (its line says so).
+out of that case (its line says so), as a tree without the neighbours
+kernel (``bridge_neighbors_<dtype>``) is out of the neighbours' cases.
 """
 
 import argparse
@@ -39,7 +45,7 @@ import torch
 
 import chip_smoke
 import xarray_parcel_tpu_torch as xt
-from xarray_parcel_tpu_torch import _build, fused
+from xarray_parcel_tpu_torch import _build, fused, parcels
 from xarray_parcel_tpu_torch import diagnostics as diag
 
 REPEATS = 10                    # launches timed per turn, after a warm-up
@@ -65,9 +71,14 @@ def tail(args):
     return dict(zip(diag.DIAG_OUTPUTS, diag.diag_kernel(*args)))
 
 
+def held(dname):
+    """A case's check of one tree's outputs against the first's."""
+    return lambda name, got, want: chip_smoke.compare(name, got, want, dname)
+
+
 def cases_at(L, dtypes, coeffs, dev):
     """{case: (run(), bound, dtype name, entry point a tree must have or
-    None)} at 786,432 x L."""
+    None, check(name, got, want))} at 786,432 x L."""
     data, td = chip_smoke.synthetic(chip_smoke.MAIN_COLUMNS, L=L)
     cases = {}
     for dtype in dtypes:
@@ -84,19 +95,32 @@ def cases_at(L, dtypes, coeffs, dev):
         cases[f'solve {dname} L={L}'] = (
             lambda a=args: solve(a, False),
             chip_smoke.bound(*chip_smoke.solve_work(*args), dtype), dname,
-            None)
+            None, held(dname))
         if dtype == torch.float32 and len(dtypes) > 1:
             cases[f'solve {dname} L={L} with tracks'] = (
-                lambda a=args: solve(a, True), None, dname, None)
+                lambda a=args: solve(a, True), None, dname, None,
+                held(dname))
             cases[f'solve {dname} L={L} all four options'] = (
                 lambda a=args: solve(a, False,
                                      **chip_smoke.SOLVE_OPTIONS[-1]),
-                None, dname, FLAGS_ENTRY)
+                None, dname, FLAGS_ENTRY, held(dname))
         targs = (p, t, tdd, h)
         cases[f'tail {dname} L={L}'] = (
             lambda a=targs: tail(a),
             chip_smoke.bound(*chip_smoke.tail_work(*targs), dtype), dname,
-            None)
+            None, held(dname))
+        layouts = (False, True) if dtype == torch.float32 else (False,)
+        entry = 'bridge_neighbors_' + ('f32' if dtype == torch.float32
+                                       else 'f64')
+        for broadcast in layouts:
+            nargs = tuple(x.to(dtype) if x.is_floating_point() else x
+                          for x in chip_smoke.neighbor_inputs(
+                              chip_smoke.MAIN_COLUMNS, L, broadcast, dev))
+            cases[f'neighbors {dname} L={L}'
+                  f'{" broadcast" if broadcast else ""}'] = (
+                lambda a=nargs: parcels.bridge_neighbors_kernel(*a),
+                chip_smoke.bound(*chip_smoke.neighbors_work(*nargs), dtype),
+                dname, entry, chip_smoke.same_bits)
     return cases
 
 
@@ -136,8 +160,8 @@ def main():
     for k, L in enumerate(opts.levels):
         dtypes = ((torch.float32, torch.float64) if k == 0
                   else (torch.float32,))
-        for case, (run, bnd, dname, needs) in cases_at(L, dtypes, coeffs,
-                                                       dev).items():
+        for case, (run, bnd, dname, needs, check) in cases_at(
+                L, dtypes, coeffs, dev).items():
             names = [n for n in all_names if needs is None
                      or hasattr(_build.load_library(trees[n]), needs)]
             left_out = [n for n in all_names if n not in names]
@@ -148,8 +172,7 @@ def main():
                                              REPEATS)
                 times[n].append(ms)
                 if n != names[0]:
-                    chip_smoke.compare(f'{case}/{n} vs {names[0]}/', got,
-                                       want, dname)
+                    check(f'{case}/{n} vs {names[0]}/', got, want)
             row = {n: sum(v) / len(v) for n, v in times.items()}
             if bnd is not None:
                 row['bound_ms'], row['bound_by'] = bnd

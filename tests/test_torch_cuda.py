@@ -12,7 +12,7 @@ import pytest
 import torch
 
 import chip_smoke
-from xarray_parcel_tpu_torch import AdiabatTables, adiabat, fused
+from xarray_parcel_tpu_torch import AdiabatTables, adiabat, fused, parcels
 from xarray_parcel_tpu_torch import diagnostics as diag
 from xarray_parcel_tpu_torch import pipeline as xt_pipeline
 from xarray_parcel_tpu_torch import xarray_api as xapi
@@ -175,6 +175,177 @@ def test_prepass_launches_per_pipeline(device, coeffs):
         before = fused.prepass_kernel.launches
         run(dat, tables=tables)
         assert fused.prepass_kernel.launches == before + want
+
+
+# --- the neighbours kernel (parcels.bridge_neighbors) -----------------------
+
+NEIGHBOR_WIDTHS = [1, 2, 13, 35, 90, 137]
+
+
+def neighbors_both(p, valid):
+    """The kernel's (prev, next), with one launch counted, and the twin's
+    on the card."""
+    before = parcels.bridge_neighbors_kernel.launches
+    got = parcels.bridge_neighbors_kernel(p, valid)
+    torch.cuda.synchronize()
+    assert parcels.bridge_neighbors_kernel.launches == before + 1
+    return got, parcels._bridge_neighbors_twin(p, valid)
+
+
+@pytest.mark.parametrize('L', NEIGHBOR_WIDTHS)
+@pytest.mark.parametrize('dtype', [torch.float64, torch.float32])
+def test_neighbors_kernel_matches_twin(device, dtype, L):
+    """Bit for bit, NaN where the twin has NaN, on
+    chip_smoke.neighbor_columns: NaN-led prefixes, interior invalid runs,
+    all-invalid and all-NaN rows, NaN under a True valid, ties, unsorted
+    rows with +-inf; 1,003 rows, not a multiple of a block's tile."""
+    p, valid = chip_smoke.neighbor_columns(1003, L, seed=L, dtype=dtype,
+                                           device=device)
+    chip_smoke.same_bits(f'neighbors L={L}', *neighbors_both(p, valid))
+
+
+@pytest.mark.parametrize('layout', ['broadcast_1d', 'broadcast_rows',
+                                    'level_stride', 'transposed', 'grid'])
+@pytest.mark.parametrize('dtype', [torch.float64, torch.float32])
+def test_neighbors_kernel_layouts(device, dtype, layout):
+    """A stride-0 pressure (1-D levels, and their (B, L) broadcast), read in
+    place; pressures with a level stride of 2 and column-major, copied; a
+    (ny, nx, L) batch: each bit-equal with the twin, in the mask's shape."""
+    p, valid = chip_smoke.neighbor_columns(777, 35, seed=4, dtype=dtype,
+                                           device=device)
+    if layout.startswith('broadcast'):
+        p = torch.linspace(1000.0, 3.0, 35, dtype=dtype, device=device)
+        p[7] = p[6]                             # a tie
+        p[20] = torch.nan                       # NaN where valid or not
+        if layout == 'broadcast_rows':
+            p = p.expand(valid.shape)
+    elif layout == 'level_stride':
+        p = torch.stack([p, p], -1).flatten(-2)[..., ::2]
+    elif layout == 'transposed':
+        p = p.t().contiguous().t()
+    else:
+        p, valid = p.reshape(21, 37, 35), valid.reshape(21, 37, 35)
+    got, want = neighbors_both(p, valid)
+    assert got[0].shape == valid.shape
+    chip_smoke.same_bits(f'neighbors {layout}', got, want)
+
+
+def test_neighbors_kernel_long_rows(device):
+    """Rows too long for a tile of several (12,000 float64 levels): a row a
+    block, in opt-in shared memory."""
+    p, valid = chip_smoke.neighbor_columns(9, 12_000, seed=2, device=device)
+    chip_smoke.same_bits('neighbors long rows', *neighbors_both(p, valid))
+
+
+def test_neighbors_empty_batch_and_rejects(device):
+    """B = 0 launches nothing; the wrapper raises on a pressure that is
+    neither float32 nor float64, a mask that is not bool, a mask of another
+    shape or one the pressure does not broadcast to, a CPU/CUDA mix and
+    the meta device, and launches nothing when it does."""
+    p, valid = chip_smoke.neighbor_columns(20, 30, device=device)
+    before = parcels.bridge_neighbors_kernel.launches
+    prev, nxt = parcels.bridge_neighbors_kernel(p[:0], valid[:0])
+    assert prev.shape == nxt.shape == (0, 30)
+    with pytest.raises(TypeError):
+        parcels.bridge_neighbors_kernel(p.half(), valid)
+    with pytest.raises(TypeError):
+        parcels.bridge_neighbors_kernel(p, valid.to(torch.uint8))
+    with pytest.raises(ValueError):
+        parcels.bridge_neighbors_kernel(p, valid[:, :-1])
+    with pytest.raises(ValueError):
+        parcels.bridge_neighbors_kernel(p, valid[0])
+    with pytest.raises(TypeError):
+        parcels.bridge_neighbors_kernel(p, valid.cpu())
+    with pytest.raises(TypeError):
+        parcels.bridge_neighbors_kernel(p.cpu(), valid)
+    with pytest.raises(ValueError):
+        parcels.bridge_neighbors_kernel(p.to('meta'), valid.to('meta'))
+    assert parcels.bridge_neighbors_kernel.launches == before
+
+
+def test_neighbors_gradient_matches_twin(device):
+    """BridgeNeighbors on the card: one launch forward, and the gradient
+    (the twin's VJP) equal to the twin's own autograd on the card, up to
+    the order of float64 sums."""
+    p, valid = chip_smoke.neighbor_columns(301, 35, seed=9, device=device)
+    p = p.nan_to_num(500.0, 1100.0, 1.0)
+    w = torch.rand(2, *p.shape, generator=torch.Generator(
+        device=device).manual_seed(3), device=device, dtype=p.dtype)
+
+    def grad(fn):
+        x = p.clone().requires_grad_()
+        prev, nxt = fn(x, valid)
+        loss = sum((torch.where(torch.isfinite(o), o, 0.0) * wi).sum()
+                   for o, wi in zip((prev, nxt), w))
+        return torch.autograd.grad(loss, x)[0]
+
+    before = parcels.bridge_neighbors_kernel.launches
+    got = grad(parcels.bridge_neighbors)
+    assert parcels.bridge_neighbors_kernel.launches == before + 1
+    want = grad(parcels._bridge_neighbors_twin)
+    assert got.abs().sum() > 0
+    # The scans' backward scatters with atomics: sums in any order.
+    torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-12)
+
+
+def test_neighbors_launches_per_pipeline(device, coeffs):
+    """One neighbours launch a conv_properties_fused call (the mixed layers
+    share it) and a min_conv_properties_fused call."""
+    tables = AdiabatTables(coeffs.to(torch.float32))
+    dat_np, _ = chip_smoke.synthetic(500, L=40)
+    dat = {k: torch.as_tensor(v, device=device) for k, v in dat_np.items()}
+    for run in (xt_pipeline.conv_properties_fused,
+                xt_pipeline.min_conv_properties_fused):
+        before = parcels.bridge_neighbors_kernel.launches
+        run(dat, tables=tables)
+        assert parcels.bridge_neighbors_kernel.launches == before + 1
+
+
+def era5_style(n, L=35, seed=6):
+    """chip_smoke.synthetic columns on the (n, L) broadcast of 1-D levels,
+    each column's levels below a drawn surface NaN in temperature,
+    humidity and height (NaN-led columns, as ERA5 on pressure levels has
+    them)."""
+    dat_np, _ = chip_smoke.synthetic(n, L=L, seed=seed)
+    ground = np.random.default_rng(seed).integers(0, 6, n)
+    below = np.arange(L) < ground[:, None]
+    dat = {k: torch.as_tensor(np.where(below, np.nan, v).astype(v.dtype)
+                              if k in ('temperature', 'specific_humidity',
+                                       'height_asl')
+                              else np.ascontiguousarray(v))
+           for k, v in dat_np.items()}
+    dat['pressure'] = dat['pressure'][0].expand(n, L)
+    return dat
+
+
+@pytest.mark.parametrize('columns', ['synthetic', 'era5_style'])
+def test_pipeline_bit_equal_with_the_twin(device, coeffs, columns,
+                                          monkeypatch):
+    """conv_properties_fused on the card, with the neighbours kernel and
+    with the twin in its place: every output bit for bit, NaN where NaN."""
+    tables = AdiabatTables(coeffs.to(torch.float32))
+    if columns == 'synthetic':
+        dat_np, _ = chip_smoke.synthetic(4099, L=90, seed=5)
+        dat = {k: torch.as_tensor(np.ascontiguousarray(v))
+               for k, v in dat_np.items()}
+    else:
+        dat = era5_style(4099)
+    dat = {k: v.to(device) for k, v in dat.items()}
+    kw = dict(tables=tables, ignore_nans=columns == 'era5_style')
+    before = parcels.bridge_neighbors_kernel.launches
+    got = xt_pipeline.conv_properties_fused(dat, **kw)
+    assert parcels.bridge_neighbors_kernel.launches == before + 1
+    monkeypatch.setattr(parcels, 'bridge_neighbors_kernel',
+                        parcels._bridge_neighbors_twin)
+    want = xt_pipeline.conv_properties_fused(dat, **kw)
+    assert set(got) == set(want)
+    for k in want:
+        if want[k].dtype == torch.bool:
+            assert torch.equal(got[k], want[k]), k
+        else:
+            chip_smoke.same_bits(k, (got[k],), (want[k],))
+    if columns == 'era5_style':
+        assert torch.isfinite(got['mu_cape']).any()
 
 
 @pytest.mark.parametrize('L', WIDTHS)

@@ -30,6 +30,7 @@ from xarray_parcel_tpu_torch import diagnostics as tdiag
 from xarray_parcel_tpu_torch import parcels as tparcels
 from xarray_parcel_tpu_torch import pipeline as tpipeline
 
+import chip_smoke
 from make_regression_archive import ARCHIVE, make_inputs
 from test_torch_ops import assert_same, columns, to_torch
 
@@ -218,6 +219,102 @@ def test_bridge_neighbors():
                      p, valid)
     for a, b in zip(want, got):
         np.testing.assert_array_equal(np.asarray(a), b.numpy())
+
+
+@pytest.mark.parametrize('layout', ['rows', 'broadcast', 'grid'])
+def test_bridge_neighbors_takes_the_twin_on_the_cpu(layout):
+    """CPU tensors take the plain twin, bit for bit, and launch nothing:
+    the hard rows of chip_smoke.neighbor_columns, 1-D levels broadcast to
+    the mask, a (ny, nx, L) batch."""
+    p, valid = chip_smoke.neighbor_columns(96, 13, seed=1)
+    if layout == 'broadcast':
+        p = p[0]
+    elif layout == 'grid':
+        p, valid = p.reshape(8, 12, 13), valid.reshape(8, 12, 13)
+    before = tparcels.bridge_neighbors_kernel.launches
+    got = tparcels.bridge_neighbors(p, valid)
+    assert tparcels.bridge_neighbors_kernel.launches == before
+    assert got[0].shape == valid.shape
+    chip_smoke.same_bits(layout, got,
+                         tparcels._bridge_neighbors_twin(p, valid))
+
+
+def neighbour_sums(fn, valid):
+    """The finite parts of ``fn``'s (prev, next), for gradcheck (an
+    infinite output has no finite difference)."""
+    def sums(p):
+        return tuple(torch.where(torch.isfinite(o), o, 0.0)
+                     for o in fn(p, valid))
+    return sums
+
+
+def test_bridge_neighbors_gradient_on_the_cpu():
+    """The gradient to pressure is torch's own through the twin on the
+    CPU (gradcheck, float64), and BridgeNeighbors (forward the twin on a
+    CPU tensor, backward its VJP) gives the same."""
+    rng = np.random.default_rng(4)
+    p = torch.tensor(rng.uniform(5.0, 1050.0, (6, 20)), requires_grad=True)
+    valid = torch.tensor(rng.random((6, 20)) > 0.3)
+    assert torch.autograd.gradcheck(
+        neighbour_sums(tparcels.bridge_neighbors, valid), (p,))
+    assert torch.autograd.gradcheck(
+        neighbour_sums(tparcels.BridgeNeighbors.apply, valid), (p,))
+    w = torch.tensor(rng.random((2, 6, 20)))
+
+    def grad(fn):
+        outs = neighbour_sums(fn, valid)(p)
+        return torch.autograd.grad(sum((o * wi).sum()
+                                       for o, wi in zip(outs, w)), p)[0]
+
+    want = grad(tparcels.bridge_neighbors)
+    assert want.abs().sum() > 0
+    assert torch.equal(grad(tparcels.BridgeNeighbors.apply), want)
+
+
+def test_bridge_neighbors_kernel_rejects_off_the_card():
+    """A mask on another device than the pressure, and the meta device,
+    raise without a launch."""
+    p, valid = chip_smoke.neighbor_columns(4, 5)
+    before = tparcels.bridge_neighbors_kernel.launches
+    with pytest.raises(TypeError):
+        tparcels.bridge_neighbors_kernel(p, valid.to('meta'))
+    with pytest.raises(TypeError):
+        tparcels.bridge_neighbors_kernel(p.to('meta'), valid)
+    with pytest.raises(ValueError):
+        tparcels.bridge_neighbors_kernel(p.to('meta'), valid.to('meta'))
+    assert tparcels.bridge_neighbors_kernel.launches == before
+
+
+@pytest.mark.parametrize('case', [
+    ('1-D levels', (7,), None, (5, 7), 0, False),
+    ('(1, L) row', (1, 7), None, (5, 7), 0, False),
+    ('broadcast rows', (7,), 'expanded', (5, 7), 0, False),
+    ('contiguous', (5, 7), None, (5, 7), 7, False),
+    ('grid', (2, 5, 7), None, (2, 5, 7), 7, False),
+    ('one row', (1, 7), None, (1, 7), 7, False),
+    ('level stride 2', (5, 14), 'every other level', (5, 7), 7, True),
+    ('column-major', (7, 5), 'transposed', (5, 7), 7, True),
+    ('broadcast over x only', (2, 1, 7), None, (2, 5, 7), 7, True),
+], ids=lambda c: c[0])
+def test_kernel_rows_reads_what_it_can_in_place(case):
+    """The layout the kernel takes: rows one row apart (stride 0) or L
+    apart, in place where the pressure is laid out so, else a contiguous
+    copy; the rows as the kernel addresses them are the broadcast
+    pressure."""
+    _, pshape, how, shape, want_stride, copies = case
+    p = torch.arange(float(np.prod(pshape))).reshape(pshape)
+    if how == 'expanded':
+        p = p.expand(shape)
+    elif how == 'every other level':
+        p = p[..., ::2]
+    elif how == 'transposed':
+        p = p.t()
+    rows, row_stride = tparcels._kernel_rows(p, torch.Size(shape))
+    B, L = rows.shape
+    assert (B * L, L, row_stride) == (int(np.prod(shape)), 7, want_stride)
+    assert (rows.data_ptr() != p.data_ptr()) == copies
+    read = torch.as_strided(rows, (B, L), (row_stride, 1))
+    assert torch.equal(read, p.expand(shape).reshape(B, L))
 
 
 def test_conserved_fields_and_mixed_layer():

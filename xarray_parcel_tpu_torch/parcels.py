@@ -4,31 +4,135 @@ CAPE/CIN wrappers.
 Port of ``xarray_parcel_tpu.parcels``.  Columns keep a static level count:
 a sub-parcel prefix is NaN-masked instead of compacted away, and every
 downstream op is first-valid-index aware.
+
+On a CUDA tensor :func:`bridge_neighbors` runs in the hand-written kernel
+``csrc/neighbors.cu`` (a thread per row, the tile staged in shared
+memory); on a CPU tensor in its plain twin ``_bridge_neighbors_twin``.
 """
 
 import torch
 
 from . import thermo
-from ._build import span
+from ._build import count_launch, launch, span
+from ._vjp import twin_vjp
 from .cape import cape_cin
 from .ops import get_layer, insert_level, interp_many, nanmax, notnan
+
+
+def _bridge_neighbors_twin(pressure, valid):
+    """:func:`bridge_neighbors` as plain torch ops (the kernel's twin):
+    exclusive cumulative min/max scans along the level axis."""
+    run_min = torch.cummin(torch.where(valid, pressure, torch.inf), -1)[0]
+    prev_raw = torch.cat([torch.full_like(run_min[..., :1], torch.inf),
+                          run_min[..., :-1]], -1)
+    masked = torch.where(valid, pressure, -torch.inf)
+    run_max = torch.cummax(masked.flip(-1), -1)[0].flip(-1)
+    next_raw = torch.cat(
+        [run_max[..., 1:],
+         torch.full_like(run_max[..., :1], -torch.inf)], -1)
+    return prev_raw, next_raw
+
+
+def bridge_neighbors_kernel(pressure, valid):
+    """:func:`bridge_neighbors` on a (…, L) ``pressure`` and a bool
+    ``valid`` of the shape the pressure broadcasts to; returns (prev, next)
+    of ``valid``'s shape.
+
+    CUDA tensors go to the hand-written kernel, the library's
+    ``bridge_neighbors_<dtype>`` (``bridge_neighbors_kernel.launches``
+    counts each launch): pressure float32 or float64, ``valid`` on its
+    device.  A pressure whose rows are one row (row stride 0: 1-D levels
+    broadcast) is read in place, as is a contiguous one; any other layout
+    is made contiguous.  CPU tensors go to the plain twin.
+    """
+    if valid.device != pressure.device:
+        raise TypeError(f'pressure on {pressure.device}, valid on '
+                        f'{valid.device}')
+    if pressure.device.type == 'cpu':
+        return _bridge_neighbors_twin(pressure, valid)
+    if pressure.device.type != 'cuda':
+        raise ValueError(f'no neighbours kernel for device {pressure.device}')
+    if pressure.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f'kernel takes float32 or float64, not '
+                        f'{pressure.dtype}')
+    if valid.dtype != torch.bool:
+        raise TypeError(f'valid must be bool, not {valid.dtype}')
+    shape = valid.shape
+    if (valid.dim() == 0 or pressure.dim() == 0
+            or pressure.dim() > valid.dim()
+            or pressure.shape[-1] != shape[-1]
+            or any(s not in (1, v) for s, v in zip(pressure.shape[::-1],
+                                                   shape[::-1]))):
+        raise ValueError(f'pressure {tuple(pressure.shape)} does not '
+                         f'broadcast to valid {tuple(shape)}')
+    # One allocation for both: they live and die together.
+    prev, nxt = torch.empty((2, *shape), dtype=pressure.dtype,
+                            device=pressure.device).unbind(0)
+    if prev.numel() > 0:
+        rows, row_stride = _kernel_rows(pressure, shape)
+        B, L = rows.shape
+        mask = valid.reshape(B, L).contiguous()
+        suffix = 'f32' if pressure.dtype == torch.float32 else 'f64'
+        launch(f'bridge_neighbors_{suffix}', pressure.device,
+               [rows.data_ptr(), mask.data_ptr(), prev.data_ptr(),
+                nxt.data_ptr()], B, L, row_stride)
+        count_launch(bridge_neighbors_kernel)
+    return prev, nxt
+
+
+bridge_neighbors_kernel.launches = 0
+
+
+def _kernel_rows(pressure, shape):
+    """The pressure as the kernel reads it, broadcast to the non-empty
+    ``shape``: ``(rows, row_stride)``, B rows of L levels with unit level
+    stride, ``row_stride`` values apart (0 where every row is one row,
+    else L).  A view where the layout is one of these, else a contiguous
+    copy."""
+    L = shape[-1]
+    rows = pressure.expand(shape).reshape(-1, L)
+    B = rows.shape[0]
+    if ((L > 1 and rows.stride(1) != 1)
+            or (B > 1 and rows.stride(0) not in (0, L))):
+        rows = rows.contiguous()
+    return rows, (0 if B > 1 and rows.stride(0) == 0 else L)
+
+
+class BridgeNeighbors(torch.autograd.Function):
+    """:func:`bridge_neighbors_kernel` with a gradient to the pressure: the
+    forward launches the kernel (the twin on a CPU tensor); the backward
+    recomputes :func:`_bridge_neighbors_twin` from the saved inputs and
+    returns its VJP.  The mask gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, pressure, valid):
+        ctx.save_for_backward(pressure, valid)
+        return bridge_neighbors_kernel(pressure, valid)
+
+    @staticmethod
+    def backward(ctx, g_prev, g_next):
+        pressure, valid = ctx.saved_tensors
+        got = twin_vjp(_bridge_neighbors_twin, (pressure, valid),
+                       ctx.needs_input_grad, (g_prev, g_next))
+        return got[0], None
 
 
 def bridge_neighbors(pressure, valid):
     """Previous/next valid pressure of every level (exclusive cumulative
     min/max scans along the level axis; pressures sorted decreasing).
-    ``+inf``/``-inf`` mark "no previous"/"no next"."""
+    ``+inf``/``-inf`` mark "no previous"/"no next"; a NaN pressure under
+    a True ``valid`` runs on through the previous and back through the
+    next, as ``torch.cummin``/``torch.cummax`` carry it.
+
+    On a CUDA tensor with grad mode on and a pressure requiring grad, it
+    goes through :class:`BridgeNeighbors`; otherwise it calls
+    :func:`bridge_neighbors_kernel` (on a CPU tensor the twin, with
+    torch's own gradient)."""
     with span('xparcel.prep.neighbors'):
-        run_min = torch.cummin(torch.where(valid, pressure, torch.inf),
-                               -1)[0]
-        prev_raw = torch.cat([torch.full_like(run_min[..., :1], torch.inf),
-                              run_min[..., :-1]], -1)
-        masked = torch.where(valid, pressure, -torch.inf)
-        run_max = torch.cummax(masked.flip(-1), -1)[0].flip(-1)
-        next_raw = torch.cat(
-            [run_max[..., 1:],
-             torch.full_like(run_max[..., :1], -torch.inf)], -1)
-        return prev_raw, next_raw
+        if (pressure.device.type == 'cuda' and torch.is_grad_enabled()
+                and pressure.requires_grad):
+            return BridgeNeighbors.apply(pressure, valid)
+        return bridge_neighbors_kernel(pressure, valid)
 
 
 def _layer_anchors(p, valid, topb, j, neighbors=None):

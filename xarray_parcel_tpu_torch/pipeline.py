@@ -8,11 +8,14 @@ the reference's variable names: ``pressure``, ``temperature``,
 
 The modular pipelines ``conv_properties`` and ``min_conv_properties``
 build every parcel profile (``cape.cape_cin``) and are plain torch on
-either device.  In the fused ones, ``conv_properties_fused`` and
-``min_conv_properties_fused``, each CAPE/CIN solve runs on CUDA tensors in
-the ``csrc/prepass.cu`` and ``csrc/fused_cape.cu`` kernels and the
-diagnostics tail (t850/td850, lapse rate and t500, freezing and melting
-levels) in the ``csrc/diag_tail.cu`` kernel, once per call.
+either device, but for the mixed layers' neighbour scans
+(``parcels.bridge_neighbors``), which run in the ``csrc/neighbors.cu``
+kernel on CUDA tensors in every pipeline.  In the fused ones,
+``conv_properties_fused`` and ``min_conv_properties_fused``, each CAPE/CIN
+solve runs on CUDA tensors in the ``csrc/prepass.cu`` and
+``csrc/fused_cape.cu`` kernels and the diagnostics tail (t850/td850, lapse
+rate and t500, freezing and melting levels) in the ``csrc/diag_tail.cu``
+kernel, once per call.
 """
 
 import torch
