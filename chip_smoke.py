@@ -74,6 +74,7 @@ import torch
 import torch.distributed as dist
 
 import xarray_parcel_tpu_torch as xt
+from parcelbench.harness import card
 from xarray_parcel_tpu_torch import (_build, adiabat, deploy, fused, native,
                                      parallel, parcels, thermo, utils)
 from xarray_parcel_tpu_torch import diagnostics as diag
@@ -113,10 +114,6 @@ NEIGHBOR_SHAPES = (('era5_pl35', 1_038_240, 35, True),
 F64_ATOL = 1e-6
 # float32 budget (docs/performance.md): relative to each output's scale.
 F32_P95, F32_MAX, F32_NAN_FLIPS = 1e-4, 5e-4, 0.01
-# One H100 SXM's published peaks (NVIDIA's data sheet, at 700 W): HBM3
-# bandwidth, and FP32 and FP64 without the tensor cores.
-HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {torch.float32: 67e12, torch.float64: 34e12}
 
 
 def log(msg):
@@ -1289,10 +1286,11 @@ def compare_prepass(name, got, want):
 
 def bound(nbytes, ops, dtype):
     """The least time the card could take for work that moves ``nbytes``
-    and does ``ops`` operations of ``dtype``: ``(ms, 'bytes' or
-    'operations')``, whichever of the two times is larger."""
-    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = ops / PEAK_OPS[dtype] * 1e3
+    and does ``ops`` operations of ``dtype``, at the published peaks of
+    ``parcelbench.harness.card``: ``(ms, 'bytes' or 'operations')``,
+    whichever of the two times is larger."""
+    by_bytes = nbytes / card.HBM_BYTES_PER_S * 1e3
+    by_ops = ops / card.PEAK_OPS[dtype.itemsize] * 1e3
     return (by_bytes, 'bytes') if by_bytes >= by_ops else (by_ops,
                                                            'operations')
 

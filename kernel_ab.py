@@ -11,28 +11,30 @@ copy of this tree with a kernel's block size changed.
 
 Then, at 786,432 columns (the ``chip_smoke.synthetic`` soundings, surface
 parcel) of the first width in ``--levels`` (90 by default), for the solve
-in float32 and float64 (also float32 with the profile tracks) and the tail
-and the neighbours in both, and for the solve, the tail and the neighbours
-in float32 at every further width, it calls the wrappers
-``fused.cape_cin_kernel``, ``diagnostics.diag_kernel`` and
-``parcels.bridge_neighbors_kernel`` with each tree's kernels
-(``_build.kernels_from``), holds each tree's outputs against the first
-tree's (float64: identical NaN patterns and 1e-6; float32: the budget;
-the neighbours bit for bit) and times each with CUDA events, the trees in
-turns (a b c ... c b a).  The neighbours take contiguous terrain-following
-columns and, at each width in float32, the broadcast of one row of
-isobaric levels (``chip_smoke.neighbor_inputs``).  The last line is one
-JSON object: each tree's mean milliseconds per launch in each case, the
-case's bound (``chip_smoke.bound``) and the card's name and power
-limit.
+in float32 and float64 (also float32 with the profile tracks) and the
+pre-pass, the tail and the neighbours in both, and for each of the four
+in float32 at every further width, it calls the kernels
+``fused.cape_cin_kernel``, ``fused.prepass_kernel``,
+``diagnostics.diag_kernel`` and ``parcels.bridge_neighbors_kernel`` with
+each tree's kernels (``_build.kernels_from``), holds each tree's outputs
+against the first tree's (float64: identical NaN patterns and 1e-6;
+float32: the budget; the pre-pass as ``chip_smoke.compare_prepass`` holds
+it to its twin; the neighbours bit for bit) and times each with CUDA
+events, the trees in turns (a b c ... c b a).  The neighbours take
+contiguous terrain-following columns and, at each width in float32, the
+broadcast of one row of isobaric levels (``chip_smoke.neighbor_inputs``).
+The last line is one JSON object: each tree's mean milliseconds per
+launch in each case, the case's bound (``chip_smoke.bound``) and the
+card's name and power limit.
 
 The solve's default options go through the library's
 ``fused_cape_cin_<dtype>`` entry points, which every tree has had since the
 first kernel, so older trees time as before.  The case with all four
 options set calls ``fused_cape_cin_flags_<dtype>``, which takes the flags
 word: a tree from before the options has no such entry point and is left
-out of that case (its line says so), as a tree without the neighbours
-kernel (``bridge_neighbors_<dtype>``) is out of the neighbours' cases.
+out of that case (its line says so), as a tree without the pre-pass
+kernel (``parcel_prepass_<dtype>``) or the neighbours kernel
+(``bridge_neighbors_<dtype>``) is out of their cases.
 """
 
 import argparse
@@ -96,6 +98,12 @@ def cases_at(L, dtypes, coeffs, dev):
             lambda a=args: solve(a, False),
             chip_smoke.bound(*chip_smoke.solve_work(*args), dtype), dname,
             None, held(dname))
+        suffix = dname.replace('float', 'f')
+        pargs = (p, *(x[:, 0].contiguous() for x in (p, t, tdd)), tab)
+        cases[f'prepass {dname} L={L}'] = (
+            lambda a=pargs: fused.prepass_kernel(*a),
+            chip_smoke.bound(*chip_smoke.prepass_work(p, args[5]), dtype),
+            dname, f'parcel_prepass_{suffix}', chip_smoke.compare_prepass)
         if dtype == torch.float32 and len(dtypes) > 1:
             cases[f'solve {dname} L={L} with tracks'] = (
                 lambda a=args: solve(a, True), None, dname, None,
@@ -110,8 +118,7 @@ def cases_at(L, dtypes, coeffs, dev):
             chip_smoke.bound(*chip_smoke.tail_work(*targs), dtype), dname,
             None, held(dname))
         layouts = (False, True) if dtype == torch.float32 else (False,)
-        entry = 'bridge_neighbors_' + ('f32' if dtype == torch.float32
-                                       else 'f64')
+        entry = f'bridge_neighbors_{suffix}'
         for broadcast in layouts:
             nargs = tuple(x.to(dtype) if x.is_floating_point() else x
                           for x in chip_smoke.neighbor_inputs(

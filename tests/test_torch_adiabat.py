@@ -25,8 +25,8 @@ from xarray_parcel_tpu_torch import constants as tc
 
 from test_torch_ops import assert_same, to_torch
 
-CU = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))), 'xarray_parcel_tpu_torch', 'csrc', 'fused_cape.cu')
+CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), 'xarray_parcel_tpu_torch', 'csrc')
 
 
 @pytest.fixture(scope='module')
@@ -145,19 +145,23 @@ def test_adiabat_tables_module(port_coeffs):
         tad.AdiabatTables(port_coeffs[:10])
 
 
-def cu_constants():
-    with open(CU) as f:
-        src = f.read()
+def cu_constants(*names):
+    src = ''
+    for name in names:
+        with open(os.path.join(CSRC, name)) as f:
+            src += f.read()
     return {m[0]: float(m[1]) for m in re.findall(
         r'constexpr double (k\w+) = ([-+0-9.eE]+);', src)}
 
 
 def test_kernel_constants_match_python():
-    """The CUDA kernel's hard-coded constants are the Python values."""
-    k = cu_constants()
+    """The CUDA kernels' hard-coded constants are the Python values: the
+    solve's own and the shared ones of thermo.cuh."""
+    k = cu_constants('fused_cape.cu', 'thermo.cuh')
     lnp = tad._SEG_LNP
     want = {
         'kRd': tc.Rd, 'kKappa': tc.kappa, 'kEpsilon': tc.epsilon,
+        'kCpd': tc.Cp_d, 'kLv': tc.Lv, 'kZeroC': tc.zero_degc,
         'kSatPressure0c': tc.sat_pressure_0c,
         'kVirtualEps': tc.virtual_temperature_epsilon,
         'kPTop': tad.P_TOP, 'kPBot': tad.P_BOT,

@@ -92,35 +92,6 @@ def test_kernel_takes_any_width(device, coeffs):
                        'float64')
 
 
-def test_launch_counter_and_empty_batch(device, coeffs):
-    tables = AdiabatTables(coeffs)
-    p, t, td = (torch.as_tensor(x, device=device)
-                for x in chip_smoke.hard_columns(40))
-    before = fused.cape_cin_kernel.launches
-    res, _ = fused.fused_surface_cape_cin(p, t, td, tables=tables)
-    assert fused.cape_cin_kernel.launches == before + 1
-    assert res['cape'].device == p.device
-    res, _ = fused.fused_surface_cape_cin(p[:0], t[:0], td[:0],
-                                          tables=tables)
-    assert res['cape'].shape == (0,)
-    assert fused.cape_cin_kernel.launches == before + 1
-
-
-def test_wrapper_rejects_what_the_kernel_does_not_take(device, coeffs):
-    tables = AdiabatTables(coeffs)
-    p, t, td = (torch.as_tensor(x, device=device)
-                for x in chip_smoke.hard_columns(20))
-    row, scalars, k0 = fused.prepass(p, p[:, 0], t[:, 0], td[:, 0], tables)
-    with pytest.raises(TypeError):
-        fused.cape_cin_kernel(p.float(), t, td, row, scalars, k0)
-    with pytest.raises(TypeError):
-        fused.cape_cin_kernel(p, t, td, row, scalars, k0.long())
-    with pytest.raises(ValueError):
-        fused.cape_cin_kernel(p, t[:, :-1], td, row, scalars, k0)
-    with pytest.raises(ValueError):
-        fused.cape_cin_kernel(p, t, td, row[:, :40], scalars, k0)
-
-
 @pytest.mark.parametrize('dtype', [torch.float64, torch.float32])
 def test_prepass_kernel_matches_twin(device, coeffs, dtype):
     """Equal k0 and NaN patterns, rows and scalars within 1e-5 (float32)
@@ -139,29 +110,6 @@ def test_prepass_kernel_matches_twin(device, coeffs, dtype):
     want = fused._prepass_twin(*args, tables)
     chip_smoke.compare_prepass('prepass', (row, scalars, k0), want)
     assert (k0 > 0).any() and torch.isnan(want[0]).all(-1).any()
-
-
-def test_prepass_empty_batch_and_rejects(device, coeffs):
-    """B = 0 launches nothing; the wrapper raises on a mixed dtype, a
-    parcel of another length, a parcel on another device and a device
-    that is neither CUDA nor the CPU."""
-    tables = AdiabatTables(coeffs)
-    p, p0, t0, td0 = chip_smoke.prepass_args(20, L=30, device=device)
-    before = fused.prepass_kernel.launches
-    row, scalars, k0 = fused.prepass_kernel(p[:0], p0[:0], t0[:0], td0[:0],
-                                            tables)
-    assert fused.prepass_kernel.launches == before
-    assert (row.shape, scalars.shape, k0.shape) == ((0, 42), (0, 6), (0,))
-    with pytest.raises(TypeError):
-        fused.prepass_kernel(p, p0.float(), t0, td0, tables)
-    with pytest.raises(TypeError):
-        fused.prepass_kernel(p, p0.cpu(), t0, td0, tables)
-    with pytest.raises(ValueError):
-        fused.prepass_kernel(p, p0[:-1], t0, td0, tables)
-    with pytest.raises(ValueError):
-        fused.prepass_kernel(*(x.to('meta') for x in (p, p0, t0, td0)),
-                             tables)
-    assert fused.prepass_kernel.launches == before
 
 
 def test_prepass_launches_per_pipeline(device, coeffs):
@@ -235,57 +183,6 @@ def test_neighbors_kernel_long_rows(device):
     block, in opt-in shared memory."""
     p, valid = chip_smoke.neighbor_columns(9, 12_000, seed=2, device=device)
     chip_smoke.same_bits('neighbors long rows', *neighbors_both(p, valid))
-
-
-def test_neighbors_empty_batch_and_rejects(device):
-    """B = 0 launches nothing; the wrapper raises on a pressure that is
-    neither float32 nor float64, a mask that is not bool, a mask of another
-    shape or one the pressure does not broadcast to, a CPU/CUDA mix and
-    the meta device, and launches nothing when it does."""
-    p, valid = chip_smoke.neighbor_columns(20, 30, device=device)
-    before = parcels.bridge_neighbors_kernel.launches
-    prev, nxt = parcels.bridge_neighbors_kernel(p[:0], valid[:0])
-    assert prev.shape == nxt.shape == (0, 30)
-    with pytest.raises(TypeError):
-        parcels.bridge_neighbors_kernel(p.half(), valid)
-    with pytest.raises(TypeError):
-        parcels.bridge_neighbors_kernel(p, valid.to(torch.uint8))
-    with pytest.raises(ValueError):
-        parcels.bridge_neighbors_kernel(p, valid[:, :-1])
-    with pytest.raises(ValueError):
-        parcels.bridge_neighbors_kernel(p, valid[0])
-    with pytest.raises(TypeError):
-        parcels.bridge_neighbors_kernel(p, valid.cpu())
-    with pytest.raises(TypeError):
-        parcels.bridge_neighbors_kernel(p.cpu(), valid)
-    with pytest.raises(ValueError):
-        parcels.bridge_neighbors_kernel(p.to('meta'), valid.to('meta'))
-    assert parcels.bridge_neighbors_kernel.launches == before
-
-
-def test_neighbors_gradient_matches_twin(device):
-    """BridgeNeighbors on the card: one launch forward, and the gradient
-    (the twin's VJP) equal to the twin's own autograd on the card, up to
-    the order of float64 sums."""
-    p, valid = chip_smoke.neighbor_columns(301, 35, seed=9, device=device)
-    p = p.nan_to_num(500.0, 1100.0, 1.0)
-    w = torch.rand(2, *p.shape, generator=torch.Generator(
-        device=device).manual_seed(3), device=device, dtype=p.dtype)
-
-    def grad(fn):
-        x = p.clone().requires_grad_()
-        prev, nxt = fn(x, valid)
-        loss = sum((torch.where(torch.isfinite(o), o, 0.0) * wi).sum()
-                   for o, wi in zip((prev, nxt), w))
-        return torch.autograd.grad(loss, x)[0]
-
-    before = parcels.bridge_neighbors_kernel.launches
-    got = grad(parcels.bridge_neighbors)
-    assert parcels.bridge_neighbors_kernel.launches == before + 1
-    want = grad(parcels._bridge_neighbors_twin)
-    assert got.abs().sum() > 0
-    # The scans' backward scatters with atomics: sums in any order.
-    torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-12)
 
 
 def test_neighbors_launches_per_pipeline(device, coeffs):
@@ -370,52 +267,6 @@ def test_profile_tracks_match_twin(device, coeffs, dtype, L):
     chip_smoke.compare('profile LI', li, out[-1], name)
 
 
-def test_solve_gradient_matches_twin(device, coeffs):
-    """The solve's autograd.Function on the card: one launch forward, and
-    the gradient (the twin's VJP on the card) equal to the CPU's."""
-    tables = AdiabatTables(coeffs)
-    cols, parcel = chip_smoke.variant_columns(*(
-        torch.as_tensor(x, device=device)
-        for x in chip_smoke.hard_columns(301, L=57, seed=3)))
-
-    def grads(dev, tab):
-        leaves = [x.detach().to(dev).requires_grad_()
-                  for x in (*cols.values(), *parcel.values())]
-        res, _ = fused.fused_cape_cin(
-            *leaves[:3], parcel_pressure=leaves[3],
-            parcel_temperature=leaves[4], parcel_dewpoint=leaves[5],
-            tables=tab, with_lifted_index=True)
-        loss = chip_smoke.finite_sum(res, ('cape', 'cin', 'lifted_index'))
-        return torch.autograd.grad(loss, leaves)
-
-    before = fused.cape_cin_kernel.launches, fused.prepass_kernel.launches
-    got = grads(device, tables)
-    assert (fused.cape_cin_kernel.launches,
-            fused.prepass_kernel.launches) == (before[0] + 1, before[1] + 1)
-    want = grads('cpu', AdiabatTables(coeffs.cpu()))
-    chip_smoke.compare_grads(
-        'solve gradient', got, want,
-        skip=chip_smoke.repeated_level(cols['pressure']))
-
-
-def test_tail_gradient_matches_twin(device):
-    cols = [torch.as_tensor(x, device=device)
-            for x in chip_smoke.tail_columns(517, L=61, seed=5)]
-
-    def grads(dev):
-        leaves = [x.detach().to(dev).requires_grad_() for x in cols]
-        out = diag.diag_fused(*leaves)
-        loss = chip_smoke.finite_sum(dict(zip(diag.DIAG_OUTPUTS, out)),
-                                     diag.DIAG_OUTPUTS)
-        return torch.autograd.grad(loss, leaves, allow_unused=True)
-
-    before = diag.diag_kernel.launches
-    got = grads(device)
-    assert diag.diag_kernel.launches == before + 1
-    want = grads('cpu')
-    chip_smoke.compare_grads('tail gradient', got, want)
-
-
 @pytest.mark.parametrize('L', WIDTHS)
 @pytest.mark.parametrize('dtype', [torch.float64, torch.float32])
 def test_tail_kernel_matches_twin(device, dtype, L):
@@ -432,31 +283,205 @@ def test_tail_kernel_matches_twin(device, dtype, L):
                        dict(zip(diag.DIAG_OUTPUTS, want)), str(dtype)[6:])
 
 
-def test_tail_launch_counter_and_empty_batch(device):
-    p, t, td, h = (torch.as_tensor(x, device=device)
-                   for x in chip_smoke.tail_columns(40, L=30))
-    before = diag.diag_kernel.launches
-    out = diag.diag_fused(p.reshape(4, 10, -1), t.reshape(4, 10, -1),
-                          td.reshape(4, 10, -1), h.reshape(4, 10, -1))
-    assert diag.diag_kernel.launches == before + 1
-    assert len(out) == 6 and out[0].shape == (4, 10)
-    assert out[0].device == p.device
-    out = diag.diag_kernel(p[:0], t[:0], td[:0], h[:0])
-    assert out.shape == (6, 0)
-    assert diag.diag_kernel.launches == before + 1
+# --- every kernel through the seam (_kernels) --------------------------------
+
+KERNELS = ['solve', 'prepass', 'tail', 'neighbors']
 
 
-def test_tail_wrapper_rejects_what_the_kernel_does_not_take(device):
-    p, t, td, h = (torch.as_tensor(x, device=device)
-                   for x in chip_smoke.tail_columns(20, L=30))
+def card_case(name, device, coeffs, n=40, L=30):
+    """A kernel, its arguments on the card (n columns of L levels), and a
+    call of the pipeline function that reaches it once on the first k of
+    those columns, returning that function's first output and its
+    expected shape."""
+    tables = AdiabatTables(coeffs)
+
+    def first(k, xs):
+        return tuple(x[:k] if torch.is_tensor(x) else x for x in xs)
+
+    if name == 'solve':
+        p, t, td = (torch.as_tensor(x, device=device)
+                    for x in chip_smoke.hard_columns(n, L=L))
+        args = (p, t, td, *fused.prepass(p, p[:, 0], t[:, 0], td[:, 0],
+                                         tables))
+        return fused.cape_cin_kernel, args, lambda k: (
+            fused.fused_surface_cape_cin(
+                *first(k, (p, t, td)), tables=tables)[0]['cape'], (k,))
+    if name == 'prepass':
+        # prepass_args gives four parcel variants of each column.
+        args = (*chip_smoke.prepass_args(n // 4, L=L, device=device),
+                tables)
+        return fused.prepass_kernel, args, lambda k: (
+            fused.prepass(*first(k, args))[0], (k, adiabat.N_COEF))
+    if name == 'tail':
+        args = tuple(torch.as_tensor(x, device=device)
+                     for x in chip_smoke.tail_columns(n, L=L))
+        return diag.diag_kernel, args, lambda k: (
+            diag.diag_fused(*(x.reshape(4, k // 4, L)
+                              for x in first(k, args)))[0], (4, k // 4))
+    args = chip_smoke.neighbor_columns(n, L, device=device)
+    return parcels.bridge_neighbors_kernel, args, lambda k: (
+        parcels.bridge_neighbors(*first(k, args))[0], (k, L))
+
+
+def outputs(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+@pytest.mark.parametrize('name', KERNELS)
+def test_launch_counter_and_empty_batch(device, coeffs, name):
+    """One launch a call, counted, from the pipeline function and from the
+    kernel itself, outputs on the card; B = 0, through either, launches
+    nothing and returns the outputs with an empty batch."""
+    kernel, args, call = card_case(name, device, coeffs)
+    before = kernel.launches
+    out, shape = call(40)
+    assert kernel.launches == before + 1
+    assert out.shape == shape and out.device == device
+    out, shape = call(0)
+    assert kernel.launches == before + 1
+    assert out.shape == shape and out.device == device
+    full = outputs(kernel(*args))
+    assert kernel.launches == before + 2
+    empty = outputs(kernel(*(x[:0] if torch.is_tensor(x) else x
+                             for x in args)))
+    assert kernel.launches == before + 2
+    assert [o.shape for o in empty] == [
+        tuple(0 if s == 40 else s for s in o.shape) for o in full]
+    assert all(o.device == device for o in full + empty)
+
+
+def rejected(name, args):
+    """(arguments, exception) the kernel must raise on without a launch:
+    those of every kernel (a device that is neither CUDA nor the CPU, a
+    CPU/CUDA mix, half floats), then the kernel's own."""
+    def swap(i, x):
+        return tuple(x if j == i else a for j, a in enumerate(args))
+
+    floats = tuple(x.half() if torch.is_tensor(x) and x.is_floating_point()
+                   else x for x in args)
+    common = [(tuple(x.to('meta') if torch.is_tensor(x) else x
+                     for x in args), ValueError),
+              (swap(0, args[0].cpu()), TypeError),
+              (swap(1, args[1].cpu()), TypeError),
+              (floats, TypeError)]
+    if name == 'solve':
+        p, t, td, row, scalars, k0 = args
+        own = [(swap(0, p.float()), TypeError),
+               (swap(5, k0.long()), TypeError),
+               (swap(1, t[:, :-1]), ValueError),
+               (swap(3, row[:, :40]), ValueError)]
+    elif name == 'prepass':
+        own = [(swap(1, args[1].float()), TypeError),
+               (swap(1, args[1][:-1]), ValueError)]
+    elif name == 'tail':
+        own = [(swap(0, args[0].float()), TypeError),
+               (swap(1, args[1][:, :-1]), ValueError),
+               (tuple(x[0] for x in args), ValueError)]
+    else:
+        p, valid = args
+        own = [(swap(1, valid.to(torch.uint8)), TypeError),
+               (swap(1, valid[:, :-1]), ValueError),
+               (swap(1, valid[0]), ValueError)]
+    return common + own
+
+
+@pytest.mark.parametrize('name', KERNELS)
+def test_wrapper_rejects_what_the_kernel_does_not_take(device, coeffs, name):
+    kernel, args, _ = card_case(name, device, coeffs, n=20)
+    before = kernel.launches
+    for bad, error in rejected(name, args):
+        with pytest.raises(error):
+            kernel(*bad)
+    # The last tensor input on the CPU, given by keyword (k0 for the solve).
+    names = list(kernel.signature.parameters)
+    last = max(i for i, x in enumerate(args) if torch.is_tensor(x))
     with pytest.raises(TypeError):
-        diag.diag_kernel(p.float(), t, td, h)
-    with pytest.raises(TypeError):
-        diag.diag_kernel(p.half(), t.half(), td.half(), h.half())
-    with pytest.raises(ValueError):
-        diag.diag_kernel(p, t[:, :-1], td, h)
-    with pytest.raises(ValueError):
-        diag.diag_kernel(p[0], t[0], td[0], h[0])
+        kernel(*args[:last], **{names[last]: args[last].cpu()},
+               **dict(zip(names[last + 1:], args[last + 1:])))
+    assert kernel.launches == before
+
+
+def solve_gradient(device, coeffs):
+    """Through fused_cape_cin with the four parcel variants: the card's
+    gradient (the twin's VJP on the card) against the CPU's."""
+    cols, parcel = chip_smoke.variant_columns(*(
+        torch.as_tensor(x, device=device)
+        for x in chip_smoke.hard_columns(301, L=57, seed=3)))
+
+    def grads(dev):
+        leaves = [x.detach().to(dev).requires_grad_()
+                  for x in (*cols.values(), *parcel.values())]
+        res, _ = fused.fused_cape_cin(
+            *leaves[:3], parcel_pressure=leaves[3],
+            parcel_temperature=leaves[4], parcel_dewpoint=leaves[5],
+            tables=AdiabatTables(coeffs.to(dev)), with_lifted_index=True)
+        loss = chip_smoke.finite_sum(res, ('cape', 'cin', 'lifted_index'))
+        return torch.autograd.grad(loss, leaves)
+
+    def check(got, want):
+        chip_smoke.compare_grads(
+            'solve gradient', got, want,
+            skip=chip_smoke.repeated_level(cols['pressure']))
+
+    return ((fused.cape_cin_kernel, fused.prepass_kernel),
+            lambda: grads(device), lambda: grads('cpu'), check)
+
+
+def tail_gradient(device, coeffs):
+    """Through diag_fused: the card's gradient against the CPU's."""
+    cols = [torch.as_tensor(x, device=device)
+            for x in chip_smoke.tail_columns(517, L=61, seed=5)]
+
+    def grads(dev):
+        leaves = [x.detach().to(dev).requires_grad_() for x in cols]
+        out = diag.diag_fused(*leaves)
+        loss = chip_smoke.finite_sum(dict(zip(diag.DIAG_OUTPUTS, out)),
+                                     diag.DIAG_OUTPUTS)
+        return torch.autograd.grad(loss, leaves, allow_unused=True)
+
+    return ((diag.diag_kernel,), lambda: grads(device), lambda: grads('cpu'),
+            lambda got, want: chip_smoke.compare_grads('tail gradient', got,
+                                                       want))
+
+
+def neighbors_gradient(device, coeffs):
+    """Through bridge_neighbors: the gradient equal to the twin's own
+    autograd on the card, up to the order of float64 sums (the scans'
+    backward scatters with atomics)."""
+    p, valid = chip_smoke.neighbor_columns(301, 35, seed=9, device=device)
+    p = p.nan_to_num(500.0, 1100.0, 1.0)
+    w = torch.rand(2, *p.shape, generator=torch.Generator(
+        device=device).manual_seed(3), device=device, dtype=p.dtype)
+
+    def grad(fn):
+        x = p.clone().requires_grad_()
+        prev, nxt = fn(x, valid)
+        loss = sum((torch.where(torch.isfinite(o), o, 0.0) * wi).sum()
+                   for o, wi in zip((prev, nxt), w))
+        return torch.autograd.grad(loss, x)
+
+    def check(got, want):
+        assert got[0].abs().sum() > 0
+        torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-12)
+
+    return ((parcels.bridge_neighbors_kernel,),
+            lambda: grad(parcels.bridge_neighbors),
+            lambda: grad(parcels._bridge_neighbors_twin), check)
+
+
+GRADIENTS = {'solve': solve_gradient, 'tail': tail_gradient,
+             'neighbors': neighbors_gradient}
+
+
+@pytest.mark.parametrize('name', list(GRADIENTS))
+def test_gradient_matches_twin(device, coeffs, name):
+    """The seam's autograd.Function on the card: one launch of each kernel
+    forward, and the gradient (the twin's VJP) held to the twin's."""
+    kernels, on_card, reference, check = GRADIENTS[name](device, coeffs)
+    before = [k.launches for k in kernels]
+    got = on_card()
+    assert [k.launches for k in kernels] == [b + 1 for b in before]
+    check(got, reference())
 
 
 # --- the solve's options -----------------------------------------------------

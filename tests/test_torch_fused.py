@@ -230,8 +230,9 @@ def test_wrapper_runs_the_twin_only_for_cpu_tensors(tables):
 
 @pytest.mark.parametrize('dtype', [torch.float64, torch.float32])
 def test_prepass_function_returns_the_twin(tables, dtype):
-    """On CPU tensors the pre-pass's wrapper and its autograd.Function
-    return the plain twin's values exactly, and launch nothing."""
+    """On CPU tensors the pre-pass's wrapper, with and without the
+    seam's autograd.Function, returns the plain twin's values exactly, and
+    launches nothing."""
     tab = tables.astype(dtype)
     args = chip_smoke.prepass_args(60, L=24, dtype=dtype)
     want = tfused._prepass_twin(*args, tab)
@@ -239,7 +240,7 @@ def test_prepass_function_returns_the_twin(tables, dtype):
     leaves = [x.clone().requires_grad_() for x in args[1:]]
     for got in (tfused.prepass_kernel(*args, tab),
                 tfused.prepass(*args, tab),
-                tfused.ParcelPrepass.apply(args[0], *leaves, tab)):
+                tfused.prepass_kernel(args[0], *leaves, tab)):
         for a, b in zip(got, want):
             assert a.dtype == b.dtype
             torch.testing.assert_close(a.detach(), b, equal_nan=True,
@@ -347,7 +348,7 @@ def test_options_are_validated(tables):
 
 @pytest.mark.parametrize('kw', SOLVE_KW[1:], ids=kw_id)
 def test_options_reach_the_gradient(tables, kw):
-    """``CapeCinSolve`` carries the options into its backward: the CAPE
+    """The solve's Function carries the options into its backward: the CAPE
     gradient equals the plain twin's under the same options."""
     p, t, td = (to_torch(x) for x in grid(B=24, seed=16))
     t1 = t.clone().requires_grad_(True)

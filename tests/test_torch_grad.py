@@ -1,15 +1,15 @@
-"""Gradients through the port: the modular path and both kernels'
-``autograd.Function``s.
+"""Gradients through the port: the modular path and the kernels' one
+``autograd.Function`` (``_kernels.KernelCall``).
 
 The analogues of ``tests/test_gradients.py`` (surface state, batched
 Jacobian, parcel variants, the fused kernel, the full modular pipeline and
 the NaN-parcel zero gradient), in float64 on the CPU: each port gradient is
 held to ``jax.grad`` of the JAX package's function at rtol 1e-6 and to
 central differences at that file's rtol.  On the CPU the kernels' wrappers
-run their plain twins, and ``fused_cape_cin``/``diag_fused`` route through
-``CapeCinSolve``/``DiagTail`` whenever an input requires grad, so these
-tests run the Functions' backward (the twins' VJP).  The fused pipeline's
-gradient, through both Functions, is held to the modular pipeline's.
+run their plain twins, and every kernel call routes through that Function
+whenever a differentiable input requires grad, so these tests run its
+backward (the twins' VJP).  The fused pipeline's gradient, through the
+pre-pass, the solve and the tail, is held to the modular pipeline's.
 """
 
 import os
@@ -27,7 +27,7 @@ from xarray_parcel_tpu import fused as jfused
 from xarray_parcel_tpu import parcels as jparcels
 from xarray_parcel_tpu import pipeline as jpipeline
 from xarray_parcel_tpu import thermo as jthermo
-from xarray_parcel_tpu_torch import AdiabatTables
+from xarray_parcel_tpu_torch import AdiabatTables, _kernels
 from xarray_parcel_tpu_torch import cape as tcape
 from xarray_parcel_tpu_torch import diagnostics as tdiag
 from xarray_parcel_tpu_torch import fused as tfused
@@ -70,15 +70,16 @@ def jit_grad(fn, **kw):
     return jax.jit(jax.grad(fn, **kw))
 
 
-def in_graph(t, name):
-    """Whether a node whose class name starts with ``name`` is in the
-    autograd graph of ``t``."""
+def in_graph(t, kernel):
+    """Whether a node of the seam's Function that calls ``kernel`` is in
+    the autograd graph of ``t``."""
     todo, seen = [t.grad_fn], set()
     while todo:
         node = todo.pop()
         if node is None or node in seen:
             continue
-        if type(node).__name__.startswith(name):
+        if (type(node).__name__ == 'KernelCallBackward'
+                and node.kernel is kernel):
             return True
         seen.add(node)
         todo.extend(n for n, _ in node.next_functions)
@@ -209,7 +210,7 @@ def test_grad_through_fused_kernel(jax_tables, tables, output):
 
     t0 = torch.tensor(temps[0], requires_grad=True)
     out = port(t0)
-    assert in_graph(out, 'CapeCinSolveBackward')
+    assert in_graph(out, tfused.cape_cin_kernel)
     out.backward()
     g = t0.grad.item()
     assert np.isfinite(g) and g != 0.0
@@ -227,7 +228,8 @@ def test_solve_function_with_profile_and_all_inputs(tables):
     args = list(tfused.prepass(p, p[:, 0], t[:, 0], td[:, 0], tables))
     row, scalars, k0 = args
     floats = [x.clone().requires_grad_() for x in (p, t, td, row, scalars)]
-    out, prof = tfused.CapeCinSolve.apply(*floats, k0, True)
+    out, prof = tfused.cape_cin_kernel(*floats, k0, True)
+    assert in_graph(out, tfused.cape_cin_kernel)
     w = torch.linspace(0.5, 1.5, out.numel()).reshape(out.shape)
     wp = torch.linspace(-1.0, 1.0, prof.numel()).reshape(prof.shape)
     loss = ((torch.nan_to_num(out) * w).sum() +
@@ -266,7 +268,7 @@ def test_prepass_function_gradient_is_the_twins(tables):
         row, scalars, _ = fn(p, *leaves, tables)
         return torch.autograd.grad(prepass_loss(row, scalars), leaves)
 
-    got = grads(tfused.ParcelPrepass.apply)
+    got = grads(tfused.prepass_kernel)
     want = grads(tfused._prepass_twin)
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, equal_nan=True, rtol=0, atol=0)
@@ -283,13 +285,13 @@ def test_prepass_function_gradcheck(tables):
     p, t, td = (x[keep][:3] for x in (p, t, td))
     state = tuple(x[:, 0].clone().requires_grad_() for x in (p, t, td))
     assert torch.autograd.gradcheck(
-        lambda *x: tfused.ParcelPrepass.apply(p, *x, tables)[:2], state)
+        lambda *x: tfused.prepass_kernel(p, *x, tables)[:2], state)
 
 
 def test_surface_parcel_gradient_unchanged(tables):
     """``fused_surface_cape_cin``'s gradients, with the pre-pass behind its
     Function, equal those of autograd through the plain pre-pass into
-    ``CapeCinSolve``."""
+    the solve's Function."""
     p, t, td = (torch.tensor(x) for x in chip_smoke.hard_columns(40, L=20,
                                                                  seed=9))
 
@@ -303,10 +305,11 @@ def test_surface_parcel_gradient_unchanged(tables):
             lp, lt, ltd = leaves
             args = tfused._prepass_twin(lp, lp[:, 0], lt[:, 0], ltd[:, 0],
                                         tables)
-            block = tfused.CapeCinSolve.apply(*leaves, *args[:2], args[2],
-                                              False)
+            block = tfused.cape_cin_kernel(*leaves, *args[:2], args[2],
+                                           False)
             out = dict(zip(tfused.OUTPUTS, block))
-        assert in_graph(out['cape'], 'ParcelPrepass') == fused_path
+        assert in_graph(out['cape'], tfused.prepass_kernel) == fused_path
+        assert in_graph(out['cape'], tfused.cape_cin_kernel)
         loss = chip_smoke.finite_sum(out, ('cape', 'cin', 'lifted_index',
                                            'lfc_pressure', 'el_pressure'))
         return torch.autograd.grad(loss, leaves)
@@ -327,7 +330,7 @@ def test_grad_through_tail_kernel():
     def port(t):
         p, td, h = (torch.tensor(x) for x in (cols[0], cols[2], cols[3]))
         out = torch.stack(tdiag.diag_fused(p, t, td, h))
-        assert in_graph(out, 'DiagTailBackward') == t.requires_grad
+        assert in_graph(out, tdiag.diag_kernel) == t.requires_grad
         return (torch.nan_to_num(out) * torch.tensor(w)).sum()
 
     def ref(t):
@@ -450,22 +453,17 @@ def test_fused_pipeline_runs_both_functions(tables):
     x = {k: torch.tensor(v) for k, v in dat.items()}
     x['temperature'].requires_grad_()
     seen = set()
-    calls = {'solve': tfused.CapeCinSolve.forward,
-             'tail': tdiag.DiagTail.forward}
+    forward = _kernels.KernelCall.forward
 
-    def spy(name):
-        def forward(ctx, *args):
-            seen.add(name)
-            return calls[name](ctx, *args)
-        return staticmethod(forward)
+    def spy(ctx, kernel, *args):
+        seen.add(kernel.what)
+        return forward(ctx, kernel, *args)
 
     try:
-        tfused.CapeCinSolve.forward = spy('solve')
-        tdiag.DiagTail.forward = spy('tail')
+        _kernels.KernelCall.forward = staticmethod(spy)
         out = tpipeline.conv_properties_fused(x, tables=tables)
     finally:
-        tfused.CapeCinSolve.forward = staticmethod(calls['solve'])
-        tdiag.DiagTail.forward = staticmethod(calls['tail'])
-    assert seen == {'solve', 'tail'}
+        _kernels.KernelCall.forward = staticmethod(forward)
+    assert seen == {'pre-pass', 'CAPE/CIN', 'diagnostics-tail'}
     scalar_loss(out).backward()
     assert torch.isfinite(x['temperature'].grad).all()

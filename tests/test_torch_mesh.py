@@ -253,8 +253,8 @@ def test_sharded_map_runs_each_entry_on_its_own_thread(mesh):
 
 
 def test_launch_counter_is_exact_under_threads():
-    """Many threads bumping one wrapper's count lose no launch (the
-    wrappers count through ``_build.count_launch``)."""
+    """Many threads bumping one kernel's count lose no launch (the
+    kernels count through ``_build.count``)."""
     def wrapper():
         pass
 
@@ -263,7 +263,7 @@ def test_launch_counter_is_exact_under_threads():
     sys.setswitchinterval(1e-6)
     try:
         threads = [threading.Thread(
-            target=lambda: [_build.count_launch(wrapper)
+            target=lambda: [_build.count(wrapper, 'launches')
                             for _ in range(2000)]) for _ in range(16)]
         for th in threads:
             th.start()

@@ -250,15 +250,16 @@ def neighbour_sums(fn, valid):
 
 def test_bridge_neighbors_gradient_on_the_cpu():
     """The gradient to pressure is torch's own through the twin on the
-    CPU (gradcheck, float64), and BridgeNeighbors (forward the twin on a
-    CPU tensor, backward its VJP) gives the same."""
+    CPU (gradcheck, float64), and ``bridge_neighbors``, through the seam's
+    Function (forward the twin on a CPU tensor, backward its VJP), gives
+    the same."""
     rng = np.random.default_rng(4)
     p = torch.tensor(rng.uniform(5.0, 1050.0, (6, 20)), requires_grad=True)
     valid = torch.tensor(rng.random((6, 20)) > 0.3)
     assert torch.autograd.gradcheck(
-        neighbour_sums(tparcels.bridge_neighbors, valid), (p,))
+        neighbour_sums(tparcels._bridge_neighbors_twin, valid), (p,))
     assert torch.autograd.gradcheck(
-        neighbour_sums(tparcels.BridgeNeighbors.apply, valid), (p,))
+        neighbour_sums(tparcels.bridge_neighbors, valid), (p,))
     w = torch.tensor(rng.random((2, 6, 20)))
 
     def grad(fn):
@@ -266,9 +267,11 @@ def test_bridge_neighbors_gradient_on_the_cpu():
         return torch.autograd.grad(sum((o * wi).sum()
                                        for o, wi in zip(outs, w)), p)[0]
 
-    want = grad(tparcels.bridge_neighbors)
+    want = grad(tparcels._bridge_neighbors_twin)
     assert want.abs().sum() > 0
-    assert torch.equal(grad(tparcels.BridgeNeighbors.apply), want)
+    prev, _ = tparcels.bridge_neighbors(p, valid)
+    assert prev.grad_fn.kernel is tparcels.bridge_neighbors_kernel
+    assert torch.equal(grad(tparcels.bridge_neighbors), want)
 
 
 def test_bridge_neighbors_kernel_rejects_off_the_card():

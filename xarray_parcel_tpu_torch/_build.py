@@ -16,9 +16,9 @@ There is no fallback: a missing ``nvcc`` or a failed build raises.  Fast
 math stays off, because the CAPE/CIN solve's selections depend on IEEE
 ``exp``/``log``/divide and on NaN semantics.
 
-What the program records of itself lives here too: the kernel wrappers'
-launch counters (:func:`count_launch`), the other counters
-(:func:`count`) and the ``xparcel.*`` spans (:func:`span`).
+What the program records of itself lives here too: the counters
+(:func:`count`; ``_kernels`` counts each kernel's launches with it) and
+the ``xparcel.*`` spans (:func:`span`).
 """
 
 import contextlib
@@ -165,12 +165,6 @@ def count(owner, name, n=1):
         setattr(owner, name, getattr(owner, name) + n)
 
 
-def count_launch(wrapper):
-    """Add one to ``wrapper.launches``, the count of kernel launches a
-    wrapper keeps (:func:`count`)."""
-    count(wrapper, 'launches')
-
-
 _NO_SPAN = contextlib.nullcontext()
 
 
@@ -188,7 +182,8 @@ def span(name):
 
 
 def launch(name, device, pointers, batch, *widths):
-    """Call the library's launcher ``name`` on ``device``'s current stream.
+    """Call the library's launcher ``name`` on ``device``'s current stream
+    (``_kernels.Kernel`` is the one caller).
 
     Every launcher has the C signature ``int name(void *..., int64_t B,
     int..., void *stream)``: ``pointers`` are the tensors' data pointers,

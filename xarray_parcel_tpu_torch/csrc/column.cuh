@@ -1,7 +1,7 @@
-// Device helpers shared by the port's kernels (fused_cape.cu, diag_tail.cu):
-// the working type's transcendentals, NaN and infinity, the NaN-keeping
-// sign, the warp reductions both kernels use (one warp solves one column,
-// its lanes striding over the column's levels), and the duplicate-aware
+// Device helpers shared by the port's four kernels: the working type's
+// transcendentals, NaN and infinity, the NaN-keeping sign, and, for the two
+// that solve a column with one warp, its lanes striding over the levels
+// (fused_cape.cu, diag_tail.cu), the warp reductions and the duplicate-aware
 // interpolation anchors of ops/interp.py.
 //
 // The helpers sit in an anonymous namespace, so every kernel file that

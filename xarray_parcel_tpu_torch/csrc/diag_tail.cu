@@ -41,12 +41,11 @@
 // Output rows, each (B,): t850, td850, lapse_rate_700_500, temp_500,
 // freezing_level, melting_level.
 
-#include "column.cuh"
+#include "thermo.cuh"
 
 namespace {
 
 constexpr int kWarps = 4;   // columns per block (128 threads)
-constexpr double kZeroC = 273.15;
 
 // Fold the crossing of d = curve - 273.15 over height in the gap between
 // levels (d0, h0) and (d1, h1) into the running minimum (ops/intersect.py

@@ -81,19 +81,14 @@
 // slot by the lane that owns it; with a null one the kernel is
 // instantiated without those stores.
 
-#include "column.cuh"
+#include "thermo.cuh"
 
 namespace {
 
 constexpr int kWarps = 8;   // columns per block (256 threads)
 
-// Constants as exact doubles of the Python values (constants.py and
-// adiabat.py of the port); tests/test_torch_adiabat.py checks them.
-constexpr double kRd = 287.04749097718457;
-constexpr double kKappa = 0.28571428571428575;
-constexpr double kEpsilon = 0.6219569100577033;
-constexpr double kSatPressure0c = 6.112;
-constexpr double kVirtualEps = 0.608;
+// adiabat.py's constants as exact doubles (constants.py's are in
+// thermo.cuh); tests/test_torch_adiabat.py checks them.
 constexpr double kPTop = 1100.0;
 constexpr double kPBot = 2.5;
 // Segment bounds of the piecewise Chebyshev fit in log-pressure, and each
@@ -107,36 +102,11 @@ constexpr double kSegShift0 = 1.6117307210414449;
 constexpr double kSegShift1 = 6.126970736883871;
 constexpr double kSegShift2 = 7.949683624226738;
 
-constexpr int kScalars = 6;   // lcl_p, lcl_t, lcl_vt, w0, t0, p0
-
 // Bits of the flags word (fused.py FLAG_*).
 constexpr int kRealTemperature = 1;
 constexpr int kLinearLcl = 2;
 constexpr int kSignedAreas = 4;
 constexpr int kZeroCin = 8;
-
-// --- thermodynamics (same evaluation order as thermo.py) -----------------
-
-template <typename T> __device__ __forceinline__ T svp(T t) {
-  return T(kSatPressure0c) *
-         dexp(T(17.67) * (t - T(273.15)) / (t - T(29.65)));
-}
-
-// Saturation mixing ratio at (p, T).
-template <typename T> __device__ __forceinline__ T sat_mr(T p, T temp) {
-  T e = svp(temp);
-  return T(kEpsilon) * e / (p - e);
-}
-
-// RH-route mixing ratio, algebraically fused.
-template <typename T>
-__device__ __forceinline__ T mixing_ratio(T t, T td, T p) {
-  return T(kEpsilon) * svp(td) / (p - svp(t));
-}
-
-template <typename T> __device__ __forceinline__ T virt(T t, T w) {
-  return t * (T(1) + T(kVirtualEps) * w);
-}
 
 // Piecewise Clenshaw evaluation of one blended coefficient row at one
 // log-pressure (adiabat._eval_spectral).  `row` is in shared memory; lanes
@@ -224,12 +194,13 @@ template <typename T> struct Column {
     if (isnan_(temp)) {
       s.PT = nan;
     } else {
-      T w = pi <= lcl_p ? sat_mr(pi, temp) : w0;
-      s.PT = virt(temp, w);
+      T w = pi <= lcl_p ? saturation_mixing_ratio(pi, temp) : w0;
+      s.PT = virtual_temperature(temp, w);
     }
     T ti = t[i], tdi = td[i];
     s.TE = ti;
-    s.ET = (isnan_(ti) || isnan_(tdi)) ? nan : virt(ti, mixing_ratio(ti, tdi, pi));
+    s.ET = (isnan_(ti) || isnan_(tdi)) ? nan
+           : virtual_temperature(ti, mixing_ratio(ti, tdi, pi));
     return s;
   }
 
@@ -356,7 +327,8 @@ fused_cape_cin_kernel(const T* __restrict__ p, const T* __restrict__ t,
   }
   c.idx = idx > c.k0 ? idx : c.k0;
   c.t_at = lcl.value(0);
-  c.envvt_at = virt(c.t_at, mixing_ratio(c.t_at, lcl.value(1), c.lcl_p));
+  c.envvt_at = virtual_temperature(
+      c.t_at, mixing_ratio(c.t_at, lcl.value(1), c.lcl_p));
 
   // --- pass B: spliced slots, each evaluated once -------------------------
   const int k0 = c.k0, slots = L + 1;

@@ -43,26 +43,19 @@
 // Built with -fmad=false (see _build.py), as the twin's separate torch ops
 // round each multiply and add on its own.
 
-#include "column.cuh"
+#include "thermo.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;   // columns per block
 constexpr int kCurves = 14300;  // adiabat.N_CURVES: rows of the table
 constexpr int kCoef = 42;       // adiabat.N_COEF: coefficients a row
-constexpr int kScalars = 6;     // fused.SCALARS
 
-// constants.py, as the twin's torch ops take them (a Python number
-// rounded to the tensor's dtype).
-constexpr double kEpsilon = 0.6219569100577033;
-constexpr double kRd = 287.04749097718457;
-constexpr double kCpd = 1004.6662184201459;
-constexpr double kLv = 2.50084e6;
+// Derived from constants.py (thermo.cuh), as the twin's torch ops take
+// them (a Python number rounded to the tensor's dtype).
 constexpr double kLvLv = 6254200705600.0;        // Lv * Lv, in double
 constexpr double kInvKappa = 3.4999999999999996;  // 1 / kappa, in double
-constexpr double kSatP0 = 6.112;
-constexpr double kZeroC = 273.15;
-constexpr double kVirtualEps = 0.608;
+// adiabat.py.
 constexpr double kLnPTop = 7.003065458786462;     // ln 1100 hPa
 constexpr double kTMin = 173.0;
 constexpr double kCurveSpacing = 0.01;            // K between curves
@@ -78,12 +71,8 @@ template <typename T> __device__ __forceinline__ T div_c(T x, double c) {
 }
 
 // thermo.py, op for op.
-template <typename T> __device__ __forceinline__ T sat_vapor_pressure(T t) {
-  return T(kSatP0) * dexp(T(17.67) * (t - T(kZeroC)) / (t - T(29.65)));
-}
-
 template <typename T> __device__ __forceinline__ T dewpoint(T e) {
-  const T val = dlog(div_c(e, kSatP0));
+  const T val = dlog(div_c(e, kSatPressure0c));
   return T(kZeroC) + T(243.5) * val / (T(17.67) - val);
 }
 
@@ -91,26 +80,11 @@ template <typename T> __device__ __forceinline__ T vapor_pressure(T p, T w) {
   return p * w / (w + T(kEpsilon));
 }
 
-template <typename T>
-__device__ __forceinline__ T mixing_ratio_from_partial(T partial, T total) {
-  return T(kEpsilon) * partial / (total - partial);
-}
-
-template <typename T>
-__device__ __forceinline__ T mixing_ratio(T t, T td, T p) {
-  return T(kEpsilon) * sat_vapor_pressure(td) / (p - sat_vapor_pressure(t));
-}
-
-template <typename T>
-__device__ __forceinline__ T virtual_temperature(T t, T w) {
-  return t * (T(1) + T(kVirtualEps) * w);
-}
-
 // dT/dln p = p * moist_lapse_rate(p, T) at p = exp(lp): adiabat.rk4_step's
 // f.
 template <typename T> __device__ __forceinline__ T lapse(T lp, T t) {
   const T p = dexp(lp);
-  const T rs = mixing_ratio_from_partial(sat_vapor_pressure(t), p);
+  const T rs = saturation_mixing_ratio(p, t);
   const T den = T(kCpd) + T(kLvLv) * rs * T(kEpsilon) / (T(kRd) * (t * t));
   const T frac = (T(kRd) * t + T(kLv) * rs) / den;
   return p * (frac / p);
@@ -146,7 +120,7 @@ parcel_prepass_kernel(const T* __restrict__ p, const T* __restrict__ p0,
     const bool valid = !isnan_(pp) && !isnan_(pt) && !isnan_(ptd);
     const T sp = valid ? pp : T(1000), st = valid ? pt : T(288);
     const T sd = valid ? ptd : T(283);
-    const T w = mixing_ratio_from_partial(sat_vapor_pressure(sd), sp);
+    const T w = saturation_mixing_ratio(sp, sd);
     T lcl_p = sp;
     for (int i = 0; i < 30; ++i) {
       const T td = dewpoint(vapor_pressure(lcl_p, w));

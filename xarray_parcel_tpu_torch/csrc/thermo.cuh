@@ -1,0 +1,47 @@
+// Point thermodynamics shared by fused_cape.cu, prepass.cu and diag_tail.cu:
+// constants.py's values and thermo.py's functions, op for op as the plain
+// twins' torch ops (tests/test_torch_adiabat.py holds the constants).
+
+#pragma once
+
+#include "column.cuh"
+
+namespace {
+
+constexpr double kRd = 287.04749097718457;
+constexpr double kCpd = 1004.6662184201459;
+constexpr double kLv = 2.50084e6;
+constexpr double kKappa = 0.28571428571428575;
+constexpr double kEpsilon = 0.6219569100577033;
+constexpr double kSatPressure0c = 6.112;
+constexpr double kZeroC = 273.15;
+constexpr double kVirtualEps = 0.608;
+
+constexpr int kScalars = 6;  // fused.SCALARS: lcl_p, lcl_t, lcl_vt, w0, t0, p0
+
+template <typename T>
+__device__ __forceinline__ T saturation_vapor_pressure(T t) {
+  return T(kSatPressure0c) *
+         dexp(T(17.67) * (t - T(kZeroC)) / (t - T(29.65)));
+}
+
+// Saturation mixing ratio at (p, T).
+template <typename T>
+__device__ __forceinline__ T saturation_mixing_ratio(T p, T t) {
+  const T e = saturation_vapor_pressure(t);
+  return T(kEpsilon) * e / (p - e);
+}
+
+// RH-route mixing ratio, algebraically fused.
+template <typename T>
+__device__ __forceinline__ T mixing_ratio(T t, T td, T p) {
+  return T(kEpsilon) * saturation_vapor_pressure(td) /
+         (p - saturation_vapor_pressure(t));
+}
+
+template <typename T>
+__device__ __forceinline__ T virtual_temperature(T t, T w) {
+  return t * (T(1) + T(kVirtualEps) * w);
+}
+
+}  // namespace

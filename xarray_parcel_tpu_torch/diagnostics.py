@@ -7,18 +7,17 @@ significant hail parameter.
 
 The fused pipelines' diagnostics tail (t850/td850, lapse rate and t500,
 freezing and melting levels) runs on a CUDA tensor in the hand-written
-kernel ``csrc/diag_tail.cu`` (:func:`diag_kernel`, the port of the JAX
+kernel ``csrc/diag_tail.cu`` (:data:`diag_kernel`, the port of the JAX
 package's ``benchmarks/diag_kernel_ab.py::_diag_kernel``) and on a CPU
-tensor in its plain twin :func:`_diag_body`.  With gradients wanted,
-:func:`diag_fused` goes through :class:`DiagTail`, whose backward is the
-twin's VJP.
+tensor in its plain twin :func:`_diag_body`, both through the seam
+(:mod:`._kernels`), whose gradient is the twin's VJP.
 """
 
 import torch
 
 from . import adiabat, thermo
-from ._build import count_launch, launch, span
-from ._vjp import twin_vjp
+from ._build import span
+from ._kernels import Kernel
 from .lcl import lcl
 from .ops import find_intersections, interp_many, log_interp, nanmin, notnan
 
@@ -161,68 +160,42 @@ def _diag_body(p, t, td, h):
     return t850, td850, lapse, t500, flh, mlh
 
 
-def diag_kernel(p, t, td, h):
-    """The diagnostics tail on (B, L) pressure, temperature, dewpoint and
-    height of one float dtype.  Returns the (6, B) block in
-    :data:`DIAG_OUTPUTS` order.
+def _diag_block(p, t, td, h):
+    """:func:`_diag_body` as the (6, B) block the kernel returns."""
+    return torch.stack(_diag_body(p, t, td, h))
 
-    CUDA tensors go to the hand-written kernel (``diag_kernel.launches``
-    counts each launch); CPU tensors go to the plain twin.
-    """
-    if p.device.type == 'cpu':
-        return torch.stack(_diag_body(p, t, td, h))
-    if p.device.type != 'cuda':
-        raise ValueError(f'no diagnostics-tail kernel for device {p.device}')
-    if p.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f'kernel takes float32 or float64, not {p.dtype}')
+
+def _diag_on_card(launch, p, t, td, h):
+    """:data:`diag_kernel` on CUDA tensors: the library's
+    ``diag_tail_<dtype>``."""
     ins = (p, t, td, h)
-    for x in ins:
-        if x.dtype != p.dtype or x.device != p.device:
-            raise TypeError('kernel inputs must share dtype and device')
     if p.dim() != 2 or any(x.shape != p.shape for x in ins):
         raise ValueError('kernel inputs must be (B, L) of one shape')
     B, L = p.shape
     ins = [x.contiguous() for x in ins]
     out = torch.empty((len(DIAG_OUTPUTS), B), dtype=p.dtype, device=p.device)
     if B > 0:
-        suffix = 'f32' if p.dtype == torch.float32 else 'f64'
-        launch(f'diag_tail_{suffix}', p.device,
-               [*(x.data_ptr() for x in ins), out.data_ptr()], B, L)
-        count_launch(diag_kernel)
+        launch('diag_tail', [*(x.data_ptr() for x in ins), out.data_ptr()],
+               B, L)
     return out
 
 
-diag_kernel.launches = 0
-
-
-class DiagTail(torch.autograd.Function):
-    """:func:`diag_kernel` with a gradient: the forward launches the kernel
-    (the twin on a CPU tensor), the backward is the VJP of
-    :func:`_diag_body` recomputed from the saved inputs."""
-
-    @staticmethod
-    def forward(ctx, p, t, td, h):
-        ctx.save_for_backward(p, t, td, h)
-        return diag_kernel(p, t, td, h)
-
-    @staticmethod
-    def backward(ctx, grad):
-        return tuple(twin_vjp(lambda *x: torch.stack(_diag_body(*x)),
-                              ctx.saved_tensors, ctx.needs_input_grad,
-                              (grad,)))
+#: The diagnostics tail on (B, L) pressure, temperature, dewpoint and
+#: height of one float dtype.  Returns the (6, B) block in
+#: :data:`DIAG_OUTPUTS` order.  CUDA tensors go to the hand-written kernel
+#: (``diag_kernel.launches`` counts each launch), CPU tensors to the plain
+#: twin; every input takes a gradient, through the twin's VJP.
+diag_kernel = Kernel('diagnostics-tail', _diag_block, _diag_on_card,
+                     differentiable=range(4))
 
 
 def diag_fused(p, t, td, h):
     """The diagnostics tail for (…, L) columns of any batch shape, through
-    :func:`diag_kernel`, or :class:`DiagTail` when grad mode is on and an
-    input requires grad.  Returns the six (…) outputs in
+    :data:`diag_kernel`.  Returns the six (…) outputs in
     :data:`DIAG_OUTPUTS` order."""
     p, t, td, h = torch.broadcast_tensors(p, t, td, h)
     batch, L = p.shape[:-1], p.shape[-1]
     flat = [x.reshape(-1, L) for x in (p, t, td, h)]
     with span('xparcel.kernel.tail'):
-        if torch.is_grad_enabled() and any(x.requires_grad for x in flat):
-            out = DiagTail.apply(*flat)
-        else:
-            out = diag_kernel(*flat)
+        out = diag_kernel(*flat)
     return tuple(v.reshape(batch) for v in out)

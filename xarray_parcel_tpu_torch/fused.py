@@ -15,9 +15,9 @@ vectorised torch on (B, L) tensors.
 The O(B) pre-pass (LCL fixed point, curve index, coefficient-row blend,
 first-valid level) runs likewise: on a CUDA tensor in one launch of
 ``csrc/prepass.cu`` (a thread per column), on a CPU tensor in its plain
-twin ``_prepass_twin``.  Each kernel's gradient is its twin's VJP
-(:class:`ParcelPrepass`, :class:`CapeCinSolve`), so gradients reach the
-parcel state through the pre-pass.
+twin ``_prepass_twin``.  Both are called through the seam
+(:mod:`._kernels`), whose gradient is the twin's VJP, so gradients reach
+the parcel state through the pre-pass.
 
 The solve takes four options with the JAX package's meaning
 (:func:`solve_options`); the kernel's default instance compiles them away
@@ -30,8 +30,8 @@ import torch
 
 from . import adiabat, thermo
 from . import constants as c
-from ._build import count_launch, launch, span
-from ._vjp import twin_vjp
+from ._build import span
+from ._kernels import Kernel
 from .adiabat import P_BOT, P_TOP, _eval_spectral
 from .cape import cape_cin_base, lfc_el
 from .lcl import lcl
@@ -184,33 +184,14 @@ def _column_outputs(p, t, td, row, scalars, k0, with_profile=False,
     return (block, torch.stack(out['profile'])) if with_profile else block
 
 
-def cape_cin_kernel(p, t, td, row, scalars, k0, with_profile=False,
-                    **options):
-    """The per-column solve on packed arguments: p/t/td (B, L), row (B, K),
-    scalars (B, 6) in :data:`SCALARS` order, all of one float dtype, and k0
-    (B,) int32; ``options`` as in :func:`solve_options`.  Returns the (7, B)
-    output block in :data:`OUTPUTS` order, and with ``with_profile`` also
-    the (3, B, L+1) tracks in :data:`PROFILE` order.
-
-    CUDA tensors go to the hand-written kernel (``cape_cin_kernel.launches``
-    counts each launch); CPU tensors go to the plain twin.  The default
-    options launch the library's ``fused_cape_cin_<dtype>`` entry point, any
-    other setting its ``fused_cape_cin_flags_<dtype>``.
-    """
+def _solve_on_card(launch, p, t, td, row, scalars, k0, with_profile=False,
+                   **options):
+    """:data:`cape_cin_kernel` on CUDA tensors: the default options launch
+    the library's ``fused_cape_cin_<dtype>`` entry point, any other setting
+    its ``fused_cape_cin_flags_<dtype>``."""
     flags = option_flags(options)
-    if p.device.type == 'cpu':
-        return _column_outputs(p, t, td, row, scalars, k0, with_profile,
-                               **options)
-    if p.device.type != 'cuda':
-        raise ValueError(f'no CAPE/CIN kernel for device {p.device}')
     B, L = p.shape
     K = row.shape[-1]
-    floats = (p, t, td, row, scalars)
-    if p.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f'kernel takes float32 or float64, not {p.dtype}')
-    for x in floats:
-        if x.dtype != p.dtype or x.device != p.device:
-            raise TypeError('kernel inputs must share dtype and device')
     if (t.shape != (B, L) or td.shape != (B, L) or row.shape != (B, K)
             or scalars.shape != (B, len(SCALARS)) or k0.shape != (B,)):
         raise ValueError('kernel input shapes do not match')
@@ -218,51 +199,33 @@ def cape_cin_kernel(p, t, td, row, scalars, k0, with_profile=False,
         raise TypeError('k0 must be int32 on the inputs\' device')
     if K % adiabat.N_SEG:
         raise ValueError(f'row width {K} is not {adiabat.N_SEG} segments')
-    floats = [x.contiguous() for x in floats]
+    floats = [x.contiguous() for x in (p, t, td, row, scalars)]
     k0 = k0.contiguous()
     out = torch.empty((len(OUTPUTS), B), dtype=p.dtype, device=p.device)
     prof = (torch.empty((len(PROFILE), B, L + 1), dtype=p.dtype,
                         device=p.device) if with_profile else None)
     if B > 0:
-        suffix = 'f32' if p.dtype == torch.float32 else 'f64'
         pointers = [*(x.data_ptr() for x in floats), k0.data_ptr(),
                     out.data_ptr(),
                     None if prof is None else prof.data_ptr()]
         if flags:
-            launch(f'fused_cape_cin_flags_{suffix}', p.device, pointers,
-                   B, L, K, flags)
+            launch('fused_cape_cin_flags', pointers, B, L, K, flags)
         else:
-            launch(f'fused_cape_cin_{suffix}', p.device, pointers, B, L, K)
-        count_launch(cape_cin_kernel)
+            launch('fused_cape_cin', pointers, B, L, K)
     return (out, prof) if with_profile else out
 
 
-cape_cin_kernel.launches = 0
-
-
-class CapeCinSolve(torch.autograd.Function):
-    """:func:`cape_cin_kernel` with a gradient, as the JAX package's
-    ``custom_vjp``: the forward launches the kernel (the twin on a CPU
-    tensor); the backward recomputes :func:`_column_outputs` from the
-    saved inputs and returns its VJP.  ``k0`` gets no gradient;
-    ``options`` is a :func:`solve_options` dict (or None)."""
-
-    @staticmethod
-    def forward(ctx, p, t, td, row, scalars, k0, with_profile, options=None):
-        ctx.with_profile = with_profile
-        ctx.options = solve_options(**(options or {}))
-        ctx.save_for_backward(p, t, td, row, scalars, k0)
-        return cape_cin_kernel(p, t, td, row, scalars, k0, with_profile,
-                               **ctx.options)
-
-    @staticmethod
-    def backward(ctx, *grads):
-        *floats, k0 = ctx.saved_tensors
-        got = twin_vjp(
-            lambda *x: _column_outputs(*x, k0, ctx.with_profile,
-                                       **ctx.options), floats,
-            ctx.needs_input_grad[:len(floats)], grads)
-        return (*got, None, None, None)
+#: The per-column solve on packed arguments: p/t/td (B, L), row (B, K),
+#: scalars (B, 6) in :data:`SCALARS` order, all of one float dtype, and k0
+#: (B,) int32, then ``with_profile`` and the options of
+#: :func:`solve_options`.  Returns the (7, B) output block in
+#: :data:`OUTPUTS` order, and with ``with_profile`` also the (3, B, L+1)
+#: tracks in :data:`PROFILE` order.  CUDA tensors go to the hand-written
+#: kernel (``cape_cin_kernel.launches`` counts each launch), CPU tensors to
+#: the plain twin :func:`_column_outputs`; p, t, td, row and scalars take
+#: a gradient (:class:`~._kernels.KernelCall`), k0 none.
+cape_cin_kernel = Kernel('CAPE/CIN', _column_outputs, _solve_on_card,
+                         differentiable=range(5))
 
 
 def _prepass_twin(p, p0, t0, td0, tables):
@@ -282,29 +245,13 @@ def _prepass_twin(p, p0, t0, td0, tables):
     return row, scalars, k0
 
 
-def prepass_kernel(p, p0, t0, td0, tables):
-    """The pre-pass on the flat (B, L) pressure columns p and the (B,)
-    parcel state p0/t0/td0.  Returns the solve's per-column arguments: row
-    (B, K), the parcel's blended coefficient row (all NaN outside the
-    adiabat family), scalars (B, 6) in :data:`SCALARS` order (the LCL's
-    NaN where the parcel state holds a NaN) and k0 (B,) int32, the first
-    level of finite pressure.
-
-    CUDA tensors go to the hand-written kernel, the library's
-    ``parcel_prepass_<dtype>`` (``prepass_kernel.launches`` counts each
-    launch): p, the parcel state and ``tables.coeffs`` must then share one
-    float dtype and the device.  CPU tensors go to the plain twin.
-    """
-    if p.device.type == 'cpu':
-        return _prepass_twin(p, p0, t0, td0, tables)
-    if p.device.type != 'cuda':
-        raise ValueError(f'no pre-pass kernel for device {p.device}')
+def _prepass_on_card(launch, p, p0, t0, td0, tables):
+    """:data:`prepass_kernel` on CUDA tensors: the library's
+    ``parcel_prepass_<dtype>``."""
     coeffs = tables.coeffs
-    if p.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f'kernel takes float32 or float64, not {p.dtype}')
-    for x in (p0, t0, td0, coeffs):
-        if x.dtype != p.dtype or x.device != p.device:
-            raise TypeError('pre-pass inputs must share dtype and device')
+    if coeffs.dtype != p.dtype or coeffs.device != p.device:
+        raise TypeError('the coefficient table must share the pressure\'s '
+                        'dtype and device')
     if p.dim() != 2 or any(x.shape != p.shape[:1] for x in (p0, t0, td0)):
         raise ValueError('pre-pass takes (B, L) pressure and (B,) parcels')
     if coeffs.shape != (adiabat.N_CURVES, adiabat.N_COEF):
@@ -316,52 +263,28 @@ def prepass_kernel(p, p0, t0, td0, tables):
     scalars = torch.empty((B, len(SCALARS)), dtype=p.dtype, device=p.device)
     k0 = torch.empty((B,), dtype=torch.int32, device=p.device)
     if B > 0:
-        suffix = 'f32' if p.dtype == torch.float32 else 'f64'
-        launch(f'parcel_prepass_{suffix}', p.device,
-               [*(x.data_ptr() for x in ins), row.data_ptr(),
-                scalars.data_ptr(), k0.data_ptr()], B, L)
-        count_launch(prepass_kernel)
+        launch('parcel_prepass', [*(x.data_ptr() for x in ins),
+                                  row.data_ptr(), scalars.data_ptr(),
+                                  k0.data_ptr()], B, L)
     return row, scalars, k0
 
 
-prepass_kernel.launches = 0
+#: The pre-pass on the flat (B, L) pressure columns p and the (B,) parcel
+#: state p0/t0/td0, with the table.  Returns the solve's per-column
+#: arguments: row (B, K), the parcel's blended coefficient row (all NaN
+#: outside the adiabat family), scalars (B, 6) in :data:`SCALARS` order
+#: (the LCL's NaN where the parcel state holds a NaN) and k0 (B,) int32,
+#: the first level of finite pressure.  CUDA tensors go to the
+#: hand-written kernel (``prepass_kernel.launches`` counts each launch):
+#: p, the parcel state and ``tables.coeffs`` must then share one float
+#: dtype and the device.  CPU tensors go to the plain twin
+#: :func:`_prepass_twin`.  The parcel state takes a gradient, through the
+#: twin's VJP, so gradients reach it through the solve's arguments.
+prepass_kernel = Kernel('pre-pass', _prepass_twin, _prepass_on_card,
+                        differentiable=(1, 2, 3))
 
-
-class ParcelPrepass(torch.autograd.Function):
-    """:func:`prepass_kernel` with a gradient to the parcel state: the
-    forward launches the kernel (the twin on a CPU tensor); the backward
-    recomputes :func:`_prepass_twin` from the saved inputs and returns its
-    VJP.  The pressure columns, k0 and the table get no gradient."""
-
-    @staticmethod
-    def forward(ctx, p, p0, t0, td0, tables):
-        ctx.tables = tables
-        ctx.save_for_backward(p, p0, t0, td0)
-        row, scalars, k0 = prepass_kernel(p, p0, t0, td0, tables)
-        ctx.mark_non_differentiable(k0)
-        return row, scalars, k0
-
-    @staticmethod
-    def backward(ctx, g_row, g_scalars, _):
-        p, *state = ctx.saved_tensors
-        got = twin_vjp(
-            lambda *x: _prepass_twin(p, *x, ctx.tables)[:2], state,
-            ctx.needs_input_grad[1:4], (g_row, g_scalars))
-        return (None, *got, None)
-
-
-def prepass(p, p0, t0, td0, tables):
-    """The O(B) pre-pass: per-column kernel arguments from the flat (B, L)
-    pressure columns and (B,) parcel state.  Returns (row, scalars, k0), as
-    :func:`prepass_kernel` does.
-
-    With grad mode on and a parcel input requiring grad, it goes through
-    :class:`ParcelPrepass`; otherwise it calls :func:`prepass_kernel`
-    directly."""
-    if torch.is_grad_enabled() and any(x.requires_grad
-                                       for x in (p0, t0, td0)):
-        return ParcelPrepass.apply(p, p0, t0, td0, tables)
-    return prepass_kernel(p, p0, t0, td0, tables)
+#: The O(B) pre-pass under the name the pipelines call it by.
+prepass = prepass_kernel
 
 
 def fused_cape_cin(pressure, temperature, dewpoint, parcel_pressure=None,
@@ -382,12 +305,10 @@ def fused_cape_cin(pressure, temperature, dewpoint, parcel_pressure=None,
     ``lcl_interp``, ``pos_cape_neg_cin``, ``post_zero_cin``); with the
     correction off the LFC/EL temperatures are real temperatures.
 
-    With grad mode on and an input requiring grad, the pre-pass and the
-    solve go through :class:`ParcelPrepass` and :class:`CapeCinSolve` and
-    every output is differentiable; otherwise they call
-    :func:`prepass_kernel` and :func:`cape_cin_kernel` directly.  On a
-    CUDA tensor the parcel state and the table must be in the columns'
-    dtype.
+    The pre-pass and the solve are :data:`prepass_kernel` and
+    :data:`cape_cin_kernel`: with grad mode on and an input requiring grad
+    every output is differentiable.  On a CUDA tensor the parcel state and
+    the table must be in the columns' dtype.
     """
     options = solve_options(**options)
     p, t, td = pressure, temperature, dewpoint
@@ -416,10 +337,7 @@ def fused_cape_cin(pressure, temperature, dewpoint, parcel_pressure=None,
         row, scalars, k0 = prepass(p, p0, t0, td0, tables)
     args = (p, t.contiguous(), td.contiguous(), row, scalars)
     with span('xparcel.kernel.solve'):
-        if torch.is_grad_enabled() and any(x.requires_grad for x in args):
-            out = CapeCinSolve.apply(*args, k0, with_profile, options)
-        else:
-            out = cape_cin_kernel(*args, k0, with_profile, **options)
+        out = cape_cin_kernel(*args, k0, with_profile, **options)
     if with_profile:
         out, prof = out
     shaped = {k: v.reshape(batch_shape) for k, v in zip(OUTPUTS, out)}

@@ -7,14 +7,15 @@ downstream op is first-valid-index aware.
 
 On a CUDA tensor :func:`bridge_neighbors` runs in the hand-written kernel
 ``csrc/neighbors.cu`` (a thread per row, the tile staged in shared
-memory); on a CPU tensor in its plain twin ``_bridge_neighbors_twin``.
+memory); on a CPU tensor in its plain twin ``_bridge_neighbors_twin``,
+both through the seam (:mod:`._kernels`).
 """
 
 import torch
 
 from . import thermo
-from ._build import count_launch, launch, span
-from ._vjp import twin_vjp
+from ._build import span
+from ._kernels import Kernel
 from .cape import cape_cin
 from .ops import get_layer, insert_level, interp_many, nanmax, notnan
 
@@ -33,28 +34,9 @@ def _bridge_neighbors_twin(pressure, valid):
     return prev_raw, next_raw
 
 
-def bridge_neighbors_kernel(pressure, valid):
-    """:func:`bridge_neighbors` on a (…, L) ``pressure`` and a bool
-    ``valid`` of the shape the pressure broadcasts to; returns (prev, next)
-    of ``valid``'s shape.
-
-    CUDA tensors go to the hand-written kernel, the library's
-    ``bridge_neighbors_<dtype>`` (``bridge_neighbors_kernel.launches``
-    counts each launch): pressure float32 or float64, ``valid`` on its
-    device.  A pressure whose rows are one row (row stride 0: 1-D levels
-    broadcast) is read in place, as is a contiguous one; any other layout
-    is made contiguous.  CPU tensors go to the plain twin.
-    """
-    if valid.device != pressure.device:
-        raise TypeError(f'pressure on {pressure.device}, valid on '
-                        f'{valid.device}')
-    if pressure.device.type == 'cpu':
-        return _bridge_neighbors_twin(pressure, valid)
-    if pressure.device.type != 'cuda':
-        raise ValueError(f'no neighbours kernel for device {pressure.device}')
-    if pressure.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f'kernel takes float32 or float64, not '
-                        f'{pressure.dtype}')
+def _neighbors_on_card(launch, pressure, valid):
+    """:data:`bridge_neighbors_kernel` on CUDA tensors: the library's
+    ``bridge_neighbors_<dtype>``."""
     if valid.dtype != torch.bool:
         raise TypeError(f'valid must be bool, not {valid.dtype}')
     shape = valid.shape
@@ -72,15 +54,10 @@ def bridge_neighbors_kernel(pressure, valid):
         rows, row_stride = _kernel_rows(pressure, shape)
         B, L = rows.shape
         mask = valid.reshape(B, L).contiguous()
-        suffix = 'f32' if pressure.dtype == torch.float32 else 'f64'
-        launch(f'bridge_neighbors_{suffix}', pressure.device,
-               [rows.data_ptr(), mask.data_ptr(), prev.data_ptr(),
-                nxt.data_ptr()], B, L, row_stride)
-        count_launch(bridge_neighbors_kernel)
+        launch('bridge_neighbors', [rows.data_ptr(), mask.data_ptr(),
+                                    prev.data_ptr(), nxt.data_ptr()],
+               B, L, row_stride)
     return prev, nxt
-
-
-bridge_neighbors_kernel.launches = 0
 
 
 def _kernel_rows(pressure, shape):
@@ -98,23 +75,16 @@ def _kernel_rows(pressure, shape):
     return rows, (0 if B > 1 and rows.stride(0) == 0 else L)
 
 
-class BridgeNeighbors(torch.autograd.Function):
-    """:func:`bridge_neighbors_kernel` with a gradient to the pressure: the
-    forward launches the kernel (the twin on a CPU tensor); the backward
-    recomputes :func:`_bridge_neighbors_twin` from the saved inputs and
-    returns its VJP.  The mask gets no gradient."""
-
-    @staticmethod
-    def forward(ctx, pressure, valid):
-        ctx.save_for_backward(pressure, valid)
-        return bridge_neighbors_kernel(pressure, valid)
-
-    @staticmethod
-    def backward(ctx, g_prev, g_next):
-        pressure, valid = ctx.saved_tensors
-        got = twin_vjp(_bridge_neighbors_twin, (pressure, valid),
-                       ctx.needs_input_grad, (g_prev, g_next))
-        return got[0], None
+#: :func:`bridge_neighbors` on a (…, L) ``pressure`` and a bool ``valid``
+#: of the shape the pressure broadcasts to, on one device; returns (prev,
+#: next) of ``valid``'s shape.  CUDA tensors go to the hand-written kernel
+#: (``bridge_neighbors_kernel.launches`` counts each launch): pressure
+#: float32 or float64.  A pressure whose rows are one row (row stride 0:
+#: 1-D levels broadcast) is read in place, as is a contiguous one; any
+#: other layout is made contiguous.  CPU tensors go to the plain twin.
+#: The pressure takes a gradient, through the twin's VJP; the mask none.
+bridge_neighbors_kernel = Kernel('neighbours', _bridge_neighbors_twin,
+                                 _neighbors_on_card, differentiable=(0,))
 
 
 def bridge_neighbors(pressure, valid):
@@ -122,16 +92,9 @@ def bridge_neighbors(pressure, valid):
     min/max scans along the level axis; pressures sorted decreasing).
     ``+inf``/``-inf`` mark "no previous"/"no next"; a NaN pressure under
     a True ``valid`` runs on through the previous and back through the
-    next, as ``torch.cummin``/``torch.cummax`` carry it.
-
-    On a CUDA tensor with grad mode on and a pressure requiring grad, it
-    goes through :class:`BridgeNeighbors`; otherwise it calls
-    :func:`bridge_neighbors_kernel` (on a CPU tensor the twin, with
-    torch's own gradient)."""
+    next, as ``torch.cummin``/``torch.cummax`` carry it.  Through
+    :data:`bridge_neighbors_kernel`."""
     with span('xparcel.prep.neighbors'):
-        if (pressure.device.type == 'cuda' and torch.is_grad_enabled()
-                and pressure.requires_grad):
-            return BridgeNeighbors.apply(pressure, valid)
         return bridge_neighbors_kernel(pressure, valid)
 
 
