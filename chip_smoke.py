@@ -4,8 +4,9 @@
 
 Builds the port's CUDA kernels from ``xarray_parcel_tpu_torch/csrc`` with
 ``nvcc`` (the CAPE/CIN solve ``fused_cape.cu``, the diagnostics tail
-``diag_tail.cu``, the solve's pre-pass ``prepass.cu`` and the neighbours
-``neighbors.cu``; ptxas's registers and spills are printed), builds the
+``diag_tail.cu``, the solve's pre-pass ``prepass.cu``, the neighbours
+``neighbors.cu`` and the mixed layers ``mix_layer.cu``; ptxas's registers
+and spills are printed), builds the
 moist-adiabat coefficients on the card, holds the solve and the tail
 against their plain PyTorch twins (float64 and float32 on hard columns of
 90 levels, and of 33 and 137 levels with the hard cases across the lanes
@@ -15,7 +16,12 @@ then times the first three at the main path's shape against their bound
 and holds the timed outputs against each other there.  The neighbours
 kernel is held to its twin bit for bit at the three device cells' shapes
 and timed there beside the twin, the two library scans alone and its
-bound.
+bound.  The mixed-layer kernel is held to its twin (the fields bit for
+bit, the parcels within ``MIX_TOL``) on hard rows in both dtypes and at
+the three device cells' shapes on each cell's own columns (``parcelbench``'s
+generator), timed there beside the twin and its bound; and each cell's
+pipeline call is split into card time by the span that launched each
+kernel, with the kernel and with its twin in its place.
 Then it drives the public entry points -- ``fused_surface_cape_cin``,
 ``conv_properties_fused``, ``min_conv_properties_fused`` and
 ``storm_proxies`` -- at 786,432
@@ -88,6 +94,7 @@ HARD_COLUMNS = 2055             # x4 parcel variants: 8,220 columns
 TAIL_COLUMNS = 4099             # hard columns of the tail check
 EDGE_LEVELS = (33, 137)         # other widths, around the lanes' wrap
 EDGE_COLUMNS = 1031             # x4 parcel variants for the solve
+MIX_COLUMNS = 4103              # hard rows of the mixed-layer check
 kWarp = 32                      # lanes of a warp, each striding over levels
 GRID = (768, 1024)              # the Dataset's horizontal grid: MAIN_COLUMNS
 SMALL_GRID = (64, 128)          # the mixed-dims Dataset (1-D pressure)
@@ -1085,6 +1092,204 @@ def neighbor_columns(n, L, seed=29, dtype=torch.float64, device='cpu'):
             torch.as_tensor(valid, device=device))
 
 
+def mix_columns(n, L, seed=37, dtype=torch.float64, device='cpu'):
+    """(pressure, temperature, dewpoint), each (n, L), for the mixed-layer
+    kernel's hard cases, by row in turn: plain soundings; t and td NaN
+    below ground (a NaN-led valid mask under a numeric pressure); a NaN-led
+    pressure; an interior invalid run; trailing NaN pressures; all NaN; no
+    valid level under a numeric pressure; duplicated levels at the surface
+    and around the layer tops; levels exactly on both layer tops (100 and
+    50 hPa above the bottom); one valid level in the layers; no valid level
+    in them; a column whose bottom lies under 100 hPa (its layer top at or
+    under 0 hPa: 95 hPa, and 100 exactly); and unsorted pressures.  Each
+    kind that needs more levels than a row has is left plain there."""
+    rng = np.random.default_rng(seed)
+    p = np.linspace(1010.0, 150.0, L) + rng.normal(0, 0.4, (n, L))
+    p = -np.sort(-p, axis=-1)
+    t, td = _sounding(p, rng)
+    j = np.arange(L)
+    for i in range(n):
+        kind, a = i % 15, int(rng.integers(1, 4))
+        pi, ti, di = p[i], t[i], td[i]
+        if kind == 1:
+            ti[:a] = di[:a] = np.nan
+        elif kind == 2:
+            pi[:a] = ti[:a] = di[:a] = np.nan
+        elif kind == 3 and L > 2:
+            ti[1:1 + a] = np.nan
+        elif kind == 4:
+            pi[L - a:] = np.nan
+        elif kind == 5:
+            pi[:] = ti[:] = di[:] = np.nan
+        elif kind == 6:
+            ti[:] = np.nan
+        elif kind == 7 and L > 1:
+            pi[1] = pi[0]
+            for top in (pi[0] - 100.0, pi[0] - 50.0):
+                k = int(np.argmax(pi < top))
+                if 0 < k < L - 1:
+                    pi[k + 1] = pi[k]
+        elif kind == 8:
+            for top in (pi[0] - 100.0, pi[0] - 50.0):
+                k = int(np.argmax(pi < top)) if (pi < top).any() else 0
+                if k > 0:
+                    pi[k] = top
+        elif kind == 9 and L > 1:
+            pi[1:] = np.linspace(pi[0] - 130.0, 150.0, L - 1)
+        elif kind == 10:
+            ti[pi >= pi[0] - 100.0] = np.nan
+        elif kind in (11, 12):
+            pi[:] = np.linspace(95.0 if kind == 11 else 100.0, 1.0, L)
+        elif kind == 13:
+            pi[:] = rng.permutation(pi)
+        elif kind == 14:
+            pi[:] = pi[::-1]
+    p[~np.isfinite(p)] = np.nan
+    return tuple(torch.as_tensor(x, dtype=dtype, device=device)
+                 for x in (p, t, td))
+
+
+def mix_work(p, t, depths):
+    """Bytes the mixed-layer kernel needs: t and td read once, the
+    pressure once (one row where every row is that row), and each depth's
+    three fields and three parcel values written once."""
+    B, L = t.shape
+    item = t.element_size()
+    rows = 1 if B > 1 and p.stride(0) == 0 else B
+    D = len(depths)
+    return item * (2 * B * L + rows * L + 3 * D * B * (L + 1)), 0
+
+
+def cell_columns(name, device, seed=1):
+    """A device cell's columns of one time step, as ``parcelbench`` makes
+    them from ``seed`` for the cell of deployment ``name`` (the ensemble's:
+    one chunk of five members): the pipeline's input dict of (B, L)
+    tensors, and the cell's ``ignore_nans``."""
+    from parcelbench.data.columns import make_fields
+    from parcelbench.entries import device as entry, device_chunked
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, 'parcelbench', 'configs',
+                           f'{name}.json')) as f:
+        cfg = json.load(f)
+    if name == 'gencast_ens50_pl13':
+        dat = device_chunked._ensemble(cfg, seed, 0, 5, device)
+    else:
+        dat = entry._columns(make_fields(cfg, seed, 0, device), cfg)
+    return dat, bool(cfg['ignore_nans'])
+
+
+def span_card_ms(run):
+    """Card milliseconds of one call of ``run``, after a warm-up call, by
+    the innermost ``xparcel.*`` span that launched each kernel ('-' for
+    none): ``torch.profiler``'s trace, each kernel matched to its launch by
+    correlation id."""
+    run()
+    torch.cuda.synchronize()
+    act = torch.profiler.ProfilerActivity
+    with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    fd, path = tempfile.mkstemp(prefix='chip_smoke_', suffix='.json')
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)['traceEvents']
+    finally:
+        os.remove(path)
+    spans, launched, kernels = [], {}, []
+    for ev in events:
+        if ev.get('ph') != 'X' or 'dur' not in ev:
+            continue
+        cat = str(ev.get('cat', '')).lower()
+        name = str(ev.get('name', ''))
+        corr = (ev.get('args') or {}).get('correlation')
+        a = float(ev['ts'])
+        if cat == 'user_annotation' and name.startswith('xparcel.'):
+            spans.append((a, a + float(ev['dur']), name))
+        elif cat == 'cuda_runtime' and name.startswith('cudaLaunchKernel'):
+            launched[corr] = a
+        elif cat == 'kernel':
+            kernels.append((corr, float(ev['dur'])))
+    out = {}
+    for corr, dur in kernels:
+        t = launched.get(corr)
+        inner = [sp for sp in spans if t is not None and sp[0] <= t < sp[1]]
+        name = min(inner, key=lambda sp: sp[1] - sp[0])[2] if inner else '-'
+        out[name] = out.get(name, 0.0) + dur * 1e-3
+    return out
+
+
+# The mixed-layer kernel's parcels against its twin's, as shares of
+# max(|twin|, 1): the sums add their terms in another order.
+MIX_TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+# In float32 the kernel is held to the twin in float64 on the same inputs:
+# within MIX_TOL of the scale and MIX_ROUNDING times the float32 twin's own
+# distance from it.  Where the float32 sums are ill-conditioned (terms that
+# cancel: layers reaching 0 hPa, unsorted levels) both fall far from the
+# float64 twin; on the card the kernel's excess over MIX_TOL was at most
+# 1.24 times the float32 twin's distance (chip_smoke.mix_columns' hard rows
+# at 2 to 137 levels, both depths, the three device cells' columns and
+# phase 15's adversarial columns), and 2 leaves room above that reading.
+MIX_ROUNDING = 2.0
+
+
+def mix_exact(p, t, td, depths):
+    """What ``compare_mix`` takes as ``exact`` for these inputs: the twin's
+    outputs in float64 on them, or None where they are float64."""
+    if t.dtype == torch.float64:
+        return None
+    return parcels._mix_layers_twin(p.double(), t.double(), td.double(),
+                                    depths)
+
+
+def compare_mix(name, got, want, depths, exact=None):
+    """Hold the mixed-layer kernel's outputs to its twin's (each the flat
+    tuple of ``parcels._mix_layers_twin``): every NaN where the twin's;
+    each depth's field pressure, the parcel's pressure and the field
+    temperature and dewpoint outside the parcel's slot bit for bit; in the
+    slot the parcel's own values; the parcel's temperature and dewpoint
+    within ``MIX_TOL`` of the scale of the twin's, or, where ``exact`` (the
+    twin's outputs in float64 on the same inputs; to be given in float32)
+    is given, within ``MIX_TOL`` of the scale and ``MIX_ROUNDING`` times
+    the twin's distance from ``exact`` of ``exact``.  Returns the largest
+    share of the scale between kernel and twin; raises on a miss."""
+    tol = MIX_TOL[got[0].dtype]
+    worst = 0.0
+    for i, depth in enumerate(depths):
+        g = got[6 * i:6 * i + 6]
+        w = want[6 * i:6 * i + 6]
+        label = f'{name} depth {depth}'
+        same_bits(f'{label} pressure', (g[0], g[3]), (w[0], w[3]))
+        slot = w[0] == w[3][..., None]
+        same_bits(f'{label} fields off the slot', (g[1][~slot], g[2][~slot]),
+                  (w[1][~slot], w[2][~slot]))
+        for k in (1, 2):
+            same_bits(f'{label} slot', (g[k][slot],),
+                      (g[k + 3][..., None].expand_as(g[k])[slot],))
+        for k in (4, 5):
+            a, b = g[k], w[k]
+            na, nb = torch.isnan(a), torch.isnan(b)
+            if not torch.equal(na, nb):
+                raise AssertionError(f'{label} parcel: NaN patterns differ '
+                                     f'in {int((na != nb).sum())} places')
+            a, b = a[~na].double(), b[~nb].double()
+            scale = b.abs().clamp(min=1.0)
+            rel = (a - b).abs() / scale
+            worst = max(worst, rel.max().item() if rel.numel() else 0.0)
+            if exact is None:
+                off, allowed = rel, torch.full_like(rel, tol)
+            else:
+                x = exact[6 * i + k][~nb]
+                off = (a - x).abs() / scale
+                allowed = tol + MIX_ROUNDING * (b - x).abs() / scale
+            if not (off <= allowed).all():
+                j = int((off - allowed).argmax())
+                raise AssertionError(f'{label} parcel: {off[j].item():.3g} '
+                                     f'of scale > {allowed[j].item():.3g}')
+    return worst
+
+
 def same_bits(name, got, want):
     """Hold each tensor of ``got`` to ``want``'s bit for bit, NaN where it
     is NaN; raises on a miss."""
@@ -1369,7 +1574,13 @@ def phase_tiers(dev, tab64, tab32, smi, solve_ms, tail_ms, pipeline_rate):
     to the serial oracle under the tiers' tolerances and filters.  Float32
     at full width: the five sweep classes at 90 levels, 65,540 distinct
     columns tiled to ``MAIN_COLUMNS``, through ``conv_properties_fused``
-    against the card's modular path under the float32 budget, with the
+    against the card's modular path under the float32 budget, but for the
+    mixed parcels' outputs, which are held to a witness: a run with the
+    mixed layers' twin in the kernel's place, within the whole budget and
+    bit for bit the kernel's run in every other output, and one with the
+    twin in float64 rounded to float32, whose count of values past the
+    budget's largest share bounds the kernel's; the mixed-layer kernel
+    against its twin (``compare_mix``) on the distinct columns; with the
     pipeline's rate and each kernel's time on them beside the synthetic
     columns' (``solve_ms``, ``tail_ms``, ``pipeline_rate``).  Logs the
     phase's lines and returns the (solve, tail) launches of its kernel
@@ -1466,15 +1677,75 @@ def phase_tiers(dev, tab64, tab32, smi, solve_ms, tail_ms, pipeline_rate):
         raise AssertionError(f'15 float32: (solve, tail) launches {counts}')
     launches += counts
     want = xt.conv_properties(dat, tables=tab32, ignore_nans=True)
-    f32_err = compare('15 adversarial float32/', got, want, 'float32')
+    # The mixed-layer kernel's parcels differ from its twin's (the modular
+    # path's torch ops) in the order their sums add, and the mixed parcels'
+    # CAPE and CIN on these columns' knife edges move with a parcel's last
+    # bits.  So the pipeline runs twice more with the kernel's twin in its
+    # place: as it is (held to the modular path under the whole budget),
+    # and in float64 with its parcels rounded to float32, a witness of how
+    # many values a parcel's last bits alone move past the budget.
+    def with_mix(mix):
+        kernel = parcels.mix_layers_kernel
+        parcels.mix_layers_kernel = mix
+        try:
+            return pipeline()
+        finally:
+            parcels.mix_layers_kernel = kernel
+
+    def rounded(p, t, td, depths):
+        return tuple(x.float() for x in mix_exact(p, t, td, depths))
+
+    same = with_mix(parcels._mix_layers_twin)
+    witness = with_mix(rounded)
+    compare('15 adversarial float32 twin/', same, want, 'float32')
+    mixed = [k for k in want if k.startswith('mixed_')]
+    rest = [k for k in want if k not in mixed]
+    # With the kernel: every output that reads no mixed parcel within the
+    # budget and bit for bit the twin's, every NaN where the twin's.
+    f32_err = compare('15 adversarial float32/', {k: got[k] for k in rest},
+                      {k: want[k] for k in rest}, 'float32')
+    for k in rest:
+        if want[k].dtype == torch.bool:
+            if not torch.equal(got[k], same[k]):
+                raise AssertionError(f'15 float32 {k}: kernel vs twin flips')
+        else:
+            same_bits(f'15 float32 {k} kernel vs twin', (got[k],), (same[k],))
+    # The mixed parcels' outputs: NaN where the twin's, the budget's 95th
+    # percentile, and no more values past its largest share than twice
+    # the witness's.
+    beyond, seen = {}, {}
+    for k in mixed:
+        v = want[k]
+        if not torch.equal(torch.isnan(got[k]), torch.isnan(same[k])):
+            raise AssertionError(f'15 float32 {k}: NaN patterns of kernel '
+                                 f'and twin differ')
+        both = ~torch.isnan(got[k]) & ~torch.isnan(v)
+        scale = max(1.0, v[~torch.isnan(v)].abs().max().item())
+        rel = (got[k] - v).abs()[both] / scale
+        if rel.numel() and torch.quantile(rel, 0.95).item() > F32_P95:
+            raise AssertionError(f'15 float32 {k}: relative error p95 over '
+                                 f'the float32 budget')
+        beyond[k] = int((rel > F32_MAX).sum())
+        seen[k] = int(((witness[k] - v).abs()[both] / scale > F32_MAX).sum())
+    if sum(beyond.values()) > 2 * sum(seen.values()):
+        raise AssertionError(f'15 float32: the kernel moves {beyond} values '
+                             f'past the budget, the witness {seen}')
     flips = {k: float((torch.isnan(got[k]) != torch.isnan(want[k])).double()
                       .mean()) for k in got if got[k].dtype != torch.bool}
     n_cape = int(torch.isfinite(got['mu_cape']).sum())
-    del got, want
+    del got, want, same, witness
     rate = MAIN_COLUMNS / wall_median(pipeline, 5)
     bp, bt = dat['pressure'], dat['temperature']
     btd = thermo.dewpoint_from_specific_humidity(bp, bt,
                                                  dat['specific_humidity'])
+    depths = (100.0, 50.0)
+    cols = tuple(x[:distinct] for x in (bp, bt, btd))
+    mix_err = compare_mix(
+        '15 adversarial float32 mixed layers',
+        parcels.mix_layers_kernel(*cols, depths),
+        parcels._mix_layers_twin(*cols, depths), depths,
+        mix_exact(*cols, depths))
+    del cols
     margs = tuple(x.contiguous() for x in (
         bp, bt, btd, *fused.prepass(bp, bp[:, 0], bt[:, 0], btd[:, 0],
                                     tab32)))
@@ -1489,7 +1760,17 @@ def phase_tiers(dev, tab64, tab32, smi, solve_ms, tail_ms, pipeline_rate):
         f'conv_properties_fused (launches 3+1) within the float32 budget '
         f'of the card\'s modular path (max |diff| {f32_err:.3g}; most NaN '
         f'flips {flips[worst]:.2%} in {worst}; mu_cape finite in {n_cape} '
-        f'columns); {rate:.4g} columns/s against phase 5\'s '
+        f'columns) but for the mixed parcels\' outputs, and bit for bit the '
+        f'pipeline with the mixed layers\' twin there, which is within the '
+        f'whole budget; the mixed-layer kernel within {mix_err:.3g} of scale '
+        f'of its twin; the mixed parcels\' outputs NaN where the twin\'s, '
+        f'{sum(beyond.values())} values of {MAIN_COLUMNS} x {len(beyond)} '
+        f'beyond the budget\'s largest share ('
+        + ', '.join(f'{k} {n}' for k, n in beyond.items() if n)
+        + f') against the float64-rounded witness\'s '
+        f'{sum(seen.values())} ('
+        + ', '.join(f'{k} {n}' for k, n in seen.items() if n)
+        + f'); {rate:.4g} columns/s against phase 5\'s '
         f'{pipeline_rate:.4g} on the synthetic columns; solve kernel '
         f'{adv_solve_ms:.3f} ms against {solve_ms:.3f}, tail kernel '
         f'{adv_tail_ms:.3f} ms against {tail_ms:.3f} (CUDA events, '
@@ -1703,6 +1984,79 @@ def main():
             f'{nlib_a:.3f}/{nlib_b:.3f} ms, bound {nb_bound[0]:.3f} ms by '
             f'{nb_bound[1]} ({smi}); bit-equal with the twin')
         del np_, nv, lo, hi, got, want
+    # The mixed layers (parcels.mix_layers): kernel against plain twin on
+    # the hard rows in both dtypes; then at the device cells' shapes on
+    # each cell's own columns, timed against the twin and the bound, and
+    # each cell's pipeline call split by span, with the kernel and with
+    # the twin (the composition it replaced) in its place.
+    mix_depths = (100.0, 50.0)
+    mix_err = {}
+    for dtype in (torch.float64, torch.float32):
+        for L in (13, 35, 90):
+            cols = mix_columns(MIX_COLUMNS, L, seed=L, dtype=dtype,
+                               device=dev)
+            got = parcels.mix_layers_kernel(*cols, mix_depths)
+            torch.cuda.synchronize()
+            mix_err[(dtype, L)] = compare_mix(
+                f'mix/{dtype}/L={L}', got,
+                parcels._mix_layers_twin(*cols, mix_depths), mix_depths,
+                mix_exact(*cols, mix_depths))
+    log(f'[4 mixed layers] {MIX_COLUMNS} hard rows x 13, 35 and 90 levels '
+        f'vs plain twin: fields and parcel pressure bit-equal; slot and '
+        f'parcel t and td within ' + ', '.join(
+            f'{v:.3g}' for v in mix_err.values()) + ' of scale (float64, '
+        f'then float32, held to the float64 twin)')
+    mix_rows, span_rows = {}, {}
+    for label, B, L, broadcast in NEIGHBOR_SHAPES:
+        dat, ignore = cell_columns(label, dev)
+        mp, mt = dat['pressure'], dat['temperature']
+        if mt.shape != (B, L) or (mp.stride(0) == 0) != broadcast:
+            raise AssertionError(f'{label}: columns {tuple(mt.shape)}')
+        margs = (mp, mt, thermo.dewpoint_from_specific_humidity(
+            mp, mt, dat['specific_humidity']), mix_depths)
+        mtwin_a, want = cuda_ms(lambda: parcels._mix_layers_twin(*margs), 3)
+        mkern_a, got = cuda_ms(lambda: parcels.mix_layers_kernel(*margs), 10)
+        mkern_b, _ = cuda_ms(lambda: parcels.mix_layers_kernel(*margs), 10)
+        mtwin_b, _ = cuda_ms(lambda: parcels._mix_layers_twin(*margs), 3)
+        err = compare_mix(f'mix/{label}', got, want, mix_depths,
+                          mix_exact(*margs))
+        mb = bound(*mix_work(mp, mt, mix_depths), torch.float32)
+        mix_rows[label] = {
+            'columns': B, 'levels': L, 'broadcast': broadcast,
+            'ms': (mkern_a + mkern_b) / 2, 'plain_ms': (mtwin_a + mtwin_b) / 2,
+            'bound_ms': mb[0], 'bound_by': mb[1], 'max_rel_err': err}
+        log(f'[4 mixed layers {label}] {B} x {L} float32 '
+            f'{"broadcast" if broadcast else "contiguous"} pressure, the '
+            f'cell\'s columns, depths {mix_depths}: kernel {mkern_a:.3f}/'
+            f'{mkern_b:.3f} ms, plain twin {mtwin_a:.3f}/{mtwin_b:.3f} ms, '
+            f'bound {mb[0]:.3f} ms by {mb[1]} ({smi}); parcels within '
+            f'{err:.3g} of scale')
+        del got, want
+
+        def pipe():
+            return xt.conv_properties_fused(dat, ignore_nans=ignore,
+                                            tables=tab32)
+
+        after = span_card_ms(pipe)
+        kernel = parcels.mix_layers_kernel
+        parcels.mix_layers_kernel = parcels._mix_layers_twin
+        try:
+            before = span_card_ms(pipe)
+        finally:
+            parcels.mix_layers_kernel = kernel
+        span_rows[label] = {'before': before, 'after': after}
+        names = sorted(k for k in set(before) | set(after)
+                       if k.startswith('xparcel.prep.'))
+        log(f'[4 spans {label}] card ms of one conv_properties_fused call '
+            f'by the innermost span that launched each kernel, twin -> '
+            f'kernel: ' + ', '.join(
+                f'{k[13:]} {before.get(k, 0.0):.3f} -> {after.get(k, 0.0):.3f}'
+                for k in names) + '; all preps '
+            f'{sum(before.get(k, 0.0) for k in names):.3f} -> '
+            f'{sum(after.get(k, 0.0) for k in names):.3f}; the call '
+            f'{sum(before.values()):.3f} -> {sum(after.values()):.3f} '
+            f'({smi})')
+        del dat, margs, mp, mt
     targs = tuple(x.contiguous() for x in (p, t, td, h))
     tplain_a, want = cuda_ms(lambda: diag._diag_body(*targs), 3)
     tkern_a, got = cuda_ms(lambda: diag.diag_kernel(*targs), 10)
@@ -1730,11 +2084,13 @@ def main():
         'reduced': (lambda: xt.min_conv_properties_fused(dat, tables=tab32),
                     (1, 1)),
     }
-    outs, launches = {}, {'fused_cape_cin': 0, 'diag_tail': 0}
+    outs, launches = {}, {'fused_cape_cin': 0, 'diag_tail': 0,
+                          'mix_layers': 0}
     for name, (run, want_counts) in paths.items():
         fused.cape_cin_kernel.launches = diag.diag_kernel.launches = 0
         fused.prepass_kernel.launches = 0
         parcels.bridge_neighbors_kernel.launches = 0
+        parcels.mix_layers_kernel.launches = 0
         out = run()
         torch.cuda.synchronize()
         counts = (fused.cape_cin_kernel.launches, diag.diag_kernel.launches)
@@ -1744,13 +2100,18 @@ def main():
         if fused.prepass_kernel.launches != counts[0]:
             raise AssertionError(f'{name}: {fused.prepass_kernel.launches} '
                                  f'pre-pass launches for {counts[0]} solves')
-        # One neighbours launch a fused pipeline call, none for the surface.
-        if parcels.bridge_neighbors_kernel.launches != (name != 'surface'):
+        # One mixed-layer launch a fused pipeline call, none for the
+        # surface; the neighbours kernel is on neither.
+        if (parcels.mix_layers_kernel.launches,
+                parcels.bridge_neighbors_kernel.launches) != (
+                    name != 'surface', 0):
             raise AssertionError(
-                f'{name}: {parcels.bridge_neighbors_kernel.launches} '
-                f'neighbours launches')
+                f'{name}: {parcels.mix_layers_kernel.launches} mixed-layer '
+                f'and {parcels.bridge_neighbors_kernel.launches} neighbours '
+                f'launches')
         launches['fused_cape_cin'] += counts[0]
         launches['diag_tail'] += counts[1]
+        launches['mix_layers'] += parcels.mix_layers_kernel.launches
         outs[name] = {**out[0], **out[1]} if name == 'surface' else out
     outs['proxies'] = xt.storm_proxies(outs['pipeline'])
     for name, out in outs.items():
@@ -2514,6 +2875,15 @@ def main():
         'bit_equal': True,
         **nb_rows['aus400_ml90'],
         'shapes': nb_rows,
+    }, {
+        'name': 'mix_layers',
+        'route': 'cuda',
+        'source': 'xarray_parcel_tpu_torch/csrc/mix_layer.cu',
+        'replaces': None,       # XLA fuses the JAX package's mixed layers
+        'launches': launches['mix_layers'],
+        **mix_rows['aus400_ml90'],
+        'shapes': mix_rows,
+        'span_card_ms': span_rows,
     }]}
     log(json.dumps(record))
     log(json.dumps({'ok': True, 'device': {

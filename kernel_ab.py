@@ -9,6 +9,10 @@ each.  An other tree is a directory holding
 ``git archive`` of the parent commit unpacked into ``dist/parent``, or a
 copy of this tree with a kernel's block size changed.
 
+First the mixed layers of both depths (``parcels.mix_layers_kernel``)
+at each device cell's shape, on the cell's own float32 columns
+(``chip_smoke.cell_columns``), held as ``chip_smoke.compare_mix`` holds
+the kernel to its twin, with the plain twin's time beside the trees'.
 Then, at 786,432 columns (the ``chip_smoke.synthetic`` soundings, surface
 parcel) of the first width in ``--levels`` (90 by default), for the solve
 in float32 and float64 (also float32 with the profile tracks) and the
@@ -33,8 +37,9 @@ first kernel, so older trees time as before.  The case with all four
 options set calls ``fused_cape_cin_flags_<dtype>``, which takes the flags
 word: a tree from before the options has no such entry point and is left
 out of that case (its line says so), as a tree without the pre-pass
-kernel (``parcel_prepass_<dtype>``) or the neighbours kernel
-(``bridge_neighbors_<dtype>``) is out of their cases.
+kernel (``parcel_prepass_<dtype>``), the neighbours kernel
+(``bridge_neighbors_<dtype>``) or the mixed-layer kernel
+(``mix_layers_f32``) is out of their cases.
 """
 
 import argparse
@@ -47,10 +52,11 @@ import torch
 
 import chip_smoke
 import xarray_parcel_tpu_torch as xt
-from xarray_parcel_tpu_torch import _build, fused, parcels
+from xarray_parcel_tpu_torch import _build, fused, parcels, thermo
 from xarray_parcel_tpu_torch import diagnostics as diag
 
 REPEATS = 10                    # launches timed per turn, after a warm-up
+MIX_DEPTHS = (100.0, 50.0)      # the full pipeline's mixed layers
 
 
 # The entry point that only trees with the solve's options have.
@@ -97,26 +103,27 @@ def cases_at(L, dtypes, coeffs, dev):
         cases[f'solve {dname} L={L}'] = (
             lambda a=args: solve(a, False),
             chip_smoke.bound(*chip_smoke.solve_work(*args), dtype), dname,
-            None, held(dname))
+            None, held(dname), None)
         suffix = dname.replace('float', 'f')
         pargs = (p, *(x[:, 0].contiguous() for x in (p, t, tdd)), tab)
         cases[f'prepass {dname} L={L}'] = (
             lambda a=pargs: fused.prepass_kernel(*a),
             chip_smoke.bound(*chip_smoke.prepass_work(p, args[5]), dtype),
-            dname, f'parcel_prepass_{suffix}', chip_smoke.compare_prepass)
+            dname, f'parcel_prepass_{suffix}', chip_smoke.compare_prepass,
+            None)
         if dtype == torch.float32 and len(dtypes) > 1:
             cases[f'solve {dname} L={L} with tracks'] = (
                 lambda a=args: solve(a, True), None, dname, None,
-                held(dname))
+                held(dname), None)
             cases[f'solve {dname} L={L} all four options'] = (
                 lambda a=args: solve(a, False,
                                      **chip_smoke.SOLVE_OPTIONS[-1]),
-                None, dname, FLAGS_ENTRY, held(dname))
+                None, dname, FLAGS_ENTRY, held(dname), None)
         targs = (p, t, tdd, h)
         cases[f'tail {dname} L={L}'] = (
             lambda a=targs: tail(a),
             chip_smoke.bound(*chip_smoke.tail_work(*targs), dtype), dname,
-            None, held(dname))
+            None, held(dname), None)
         layouts = (False, True) if dtype == torch.float32 else (False,)
         entry = f'bridge_neighbors_{suffix}'
         for broadcast in layouts:
@@ -127,7 +134,28 @@ def cases_at(L, dtypes, coeffs, dev):
                   f'{" broadcast" if broadcast else ""}'] = (
                 lambda a=nargs: parcels.bridge_neighbors_kernel(*a),
                 chip_smoke.bound(*chip_smoke.neighbors_work(*nargs), dtype),
-                dname, entry, chip_smoke.same_bits)
+                dname, entry, chip_smoke.same_bits, None)
+    return cases
+
+
+def mix_cases(dev):
+    """{case: (run(), bound, 'float32', entry point, check, twin())}: the
+    mixed layers of both depths at each device cell's shape, on the cell's
+    own columns (``chip_smoke.cell_columns``)."""
+    cases = {}
+    for label, B, L, broadcast in chip_smoke.NEIGHBOR_SHAPES:
+        dat, _ = chip_smoke.cell_columns(label, dev)
+        p, t = dat['pressure'], dat['temperature']
+        args = (p, t, thermo.dewpoint_from_specific_humidity(
+            p, t, dat['specific_humidity']), MIX_DEPTHS)
+        cases[f'mixed layers {label} {B} x {L}'
+              f'{" broadcast" if broadcast else ""}'] = (
+            lambda a=args: parcels.mix_layers_kernel(*a),
+            chip_smoke.bound(*chip_smoke.mix_work(p, t, MIX_DEPTHS),
+                             torch.float32), 'float32', 'mix_layers_f32',
+            lambda name, got, want, a=args: chip_smoke.compare_mix(
+                name, got, want, MIX_DEPTHS, chip_smoke.mix_exact(*a)),
+            lambda a=args: parcels._mix_layers_twin(*a))
     return cases
 
 
@@ -164,11 +192,13 @@ def main():
     coeffs = xt.AdiabatTables.build(dev, torch.float64).coeffs
     all_names = list(trees)
     result = {'device': smi, 'columns': chip_smoke.MAIN_COLUMNS, 'cases': {}}
-    for k, L in enumerate(opts.levels):
-        dtypes = ((torch.float32, torch.float64) if k == 0
-                  else (torch.float32,))
-        for case, (run, bnd, dname, needs, check) in cases_at(
-                L, dtypes, coeffs, dev).items():
+    groups = [lambda: mix_cases(dev)] + [
+        lambda k=k, L=L: cases_at(
+            L, (torch.float32, torch.float64) if k == 0 else (torch.float32,),
+            coeffs, dev)
+        for k, L in enumerate(opts.levels)]
+    for group in groups:
+        for case, (run, bnd, dname, needs, check, twin) in group().items():
             names = [n for n in all_names if needs is None
                      or hasattr(_build.load_library(trees[n]), needs)]
             left_out = [n for n in all_names if n not in names]
@@ -183,11 +213,14 @@ def main():
             row = {n: sum(v) / len(v) for n, v in times.items()}
             if bnd is not None:
                 row['bound_ms'], row['bound_by'] = bnd
+            if twin is not None:
+                row['twin_ms'] = chip_smoke.cuda_ms(twin, 3)[0]
             result['cases'][case] = row
             print(f'{case}: ' + ', '.join(
                 f'{n} {"/".join(f"{x:.3f}" for x in times[n])} ms'
                 for n in names) + (f'; bound {bnd[0]:.3f} ms by {bnd[1]}'
                                    if bnd else '') + (
+                f'; plain twin {row["twin_ms"]:.3f} ms' if twin else '') + (
                 f'; without {needs}: {", ".join(left_out)}'
                 if left_out else '') + f' ({smi})', flush=True)
             del want, got

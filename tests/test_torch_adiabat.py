@@ -163,7 +163,7 @@ def test_kernel_constants_match_python():
         'kRd': tc.Rd, 'kKappa': tc.kappa, 'kEpsilon': tc.epsilon,
         'kCpd': tc.Cp_d, 'kLv': tc.Lv, 'kZeroC': tc.zero_degc,
         'kSatPressure0c': tc.sat_pressure_0c,
-        'kVirtualEps': tc.virtual_temperature_epsilon,
+        'kVirtualEps': tc.virtual_temperature_epsilon, 'kP0': tc.P0,
         'kPTop': tad.P_TOP, 'kPBot': tad.P_BOT,
         'kSegLnp1': lnp[1], 'kSegLnp2': lnp[2],
         **{f'kSegScale{s}': 2.0 / (lnp[s + 1] - lnp[s]) for s in range(3)},

@@ -186,16 +186,24 @@ def test_neighbors_kernel_long_rows(device):
 
 
 def test_neighbors_launches_per_pipeline(device, coeffs):
-    """One neighbours launch a conv_properties_fused call (the mixed layers
-    share it) and a min_conv_properties_fused call."""
+    """No neighbours launch in a conv_properties_fused or a
+    min_conv_properties_fused call, and one mixed-layer launch, which
+    scans the neighbours of every depth itself; with ``mix_grow``, one
+    neighbours launch (the mixed layers share it) and no mixed-layer
+    launch."""
     tables = AdiabatTables(coeffs.to(torch.float32))
     dat_np, _ = chip_smoke.synthetic(500, L=40)
     dat = {k: torch.as_tensor(v, device=device) for k, v in dat_np.items()}
-    for run in (xt_pipeline.conv_properties_fused,
-                xt_pipeline.min_conv_properties_fused):
-        before = parcels.bridge_neighbors_kernel.launches
+    for run, want in (
+            (xt_pipeline.conv_properties_fused, (0, 1)),
+            (xt_pipeline.min_conv_properties_fused, (0, 1)),
+            (lambda d, **kw: xt_pipeline.conv_properties_fused(
+                d, mix_grow=True, **kw), (1, 0))):
+        before = (parcels.bridge_neighbors_kernel.launches,
+                  parcels.mix_layers_kernel.launches)
         run(dat, tables=tables)
-        assert parcels.bridge_neighbors_kernel.launches == before + 1
+        assert (parcels.bridge_neighbors_kernel.launches - before[0],
+                parcels.mix_layers_kernel.launches - before[1]) == want
 
 
 def era5_style(n, L=35, seed=6):
@@ -218,8 +226,11 @@ def era5_style(n, L=35, seed=6):
 @pytest.mark.parametrize('columns', ['synthetic', 'era5_style'])
 def test_pipeline_bit_equal_with_the_twin(device, coeffs, columns,
                                           monkeypatch):
-    """conv_properties_fused on the card, with the neighbours kernel and
-    with the twin in its place: every output bit for bit, NaN where NaN."""
+    """conv_properties_fused on the card, with the mixed-layer kernel and
+    with its twin in its place: every output that does not read the mixed
+    parcels bit for bit, NaN where NaN; the mixed parcels' CAPE, CIN,
+    lifted index and DCI within the float32 budget (chip_smoke.compare:
+    the parcels' sums add in another order)."""
     tables = AdiabatTables(coeffs.to(torch.float32))
     if columns == 'synthetic':
         dat_np, _ = chip_smoke.synthetic(4099, L=90, seed=5)
@@ -229,20 +240,24 @@ def test_pipeline_bit_equal_with_the_twin(device, coeffs, columns,
         dat = era5_style(4099)
     dat = {k: v.to(device) for k, v in dat.items()}
     kw = dict(tables=tables, ignore_nans=columns == 'era5_style')
-    before = parcels.bridge_neighbors_kernel.launches
+    before = parcels.mix_layers_kernel.launches
     got = xt_pipeline.conv_properties_fused(dat, **kw)
-    assert parcels.bridge_neighbors_kernel.launches == before + 1
-    monkeypatch.setattr(parcels, 'bridge_neighbors_kernel',
-                        parcels._bridge_neighbors_twin)
+    assert parcels.mix_layers_kernel.launches == before + 1
+    monkeypatch.setattr(parcels, 'mix_layers_kernel',
+                        parcels._mix_layers_twin)
     want = xt_pipeline.conv_properties_fused(dat, **kw)
     assert set(got) == set(want)
+    mixed = sorted(k for k in want if k.startswith('mixed_'))
     for k in want:
         if want[k].dtype == torch.bool:
             assert torch.equal(got[k], want[k]), k
-        else:
+        elif k not in mixed:
             chip_smoke.same_bits(k, (got[k],), (want[k],))
+    chip_smoke.compare('mixed parcels', {k: got[k] for k in mixed},
+                       {k: want[k] for k in mixed}, 'float32')
     if columns == 'era5_style':
         assert torch.isfinite(got['mu_cape']).any()
+        assert torch.isfinite(got['mixed_100_cape']).any()
 
 
 @pytest.mark.parametrize('L', WIDTHS)
@@ -283,9 +298,112 @@ def test_tail_kernel_matches_twin(device, dtype, L):
                        dict(zip(diag.DIAG_OUTPUTS, want)), str(dtype)[6:])
 
 
+# --- the mixed-layer kernel (parcels.mix_layers) -----------------------------
+
+MIX_WIDTHS = [1, 2, 13, 35, 90, 137]
+# ERA5's isobaric levels down to 3 hPa: both layer tops of a 1000 hPa
+# bottom (900, 950) are levels.
+ERA5_LEVELS = [1000, 975, 950, 925, 900, 875, 850, 825, 800, 775, 750, 700,
+               650, 600, 550, 500, 450, 400, 350, 300, 250, 225, 200, 175,
+               150, 125, 100, 70, 50, 30, 20, 10, 7, 5, 3]
+
+
+def mix_held(name, p, t, td, depths):
+    """The kernel's outputs, with one launch counted, held to the twin's on the card (chip_smoke.compare_mix; in float32
+    beside the twin's in float64 on the same inputs).  Returns the
+    kernel's outputs."""
+    before = parcels.mix_layers_kernel.launches
+    got = parcels.mix_layers_kernel(p, t, td, depths)
+    torch.cuda.synchronize()
+    launches = parcels.mix_layers_kernel.launches - before
+    assert launches == 1
+    chip_smoke.compare_mix(name, got, parcels._mix_layers_twin(
+        p, t, td, depths), depths, chip_smoke.mix_exact(p, t, td, depths))
+    return got
+
+
+@pytest.mark.parametrize('depths', [(100.0,), (100.0, 50.0)])
+@pytest.mark.parametrize('L', MIX_WIDTHS)
+@pytest.mark.parametrize('dtype', [torch.float64, torch.float32])
+def test_mix_layers_kernel_matches_twin(device, dtype, L, depths):
+    """The kernel held to the twin on chip_smoke.mix_columns' hard rows
+    (NaN-led, interior-NaN and trailing-NaN columns, all-NaN columns,
+    duplicated levels, levels on the layer tops, one valid level in the
+    layer or none, bottoms under 100 hPa, unsorted rows), a contiguous
+    pressure; 1,003 rows, not a multiple of a block's tile."""
+    p, t, td = chip_smoke.mix_columns(1003, L, seed=L, dtype=dtype,
+                                      device=device)
+    mix_held(f'mix L={L}', p, t, td, depths)
+
+
+@pytest.mark.parametrize('layout', ['broadcast_1d', 'broadcast_rows',
+                                    'transposed', 'grid'])
+@pytest.mark.parametrize('dtype', [torch.float64, torch.float32])
+def test_mix_layers_kernel_layouts(device, dtype, layout):
+    """A stride-0 pressure (ERA5's 1-D levels, and their (B, L) broadcast)
+    read in place under temperature and dewpoint NaN below each column's
+    ground; a column-major pressure, copied; a (ny, nx, L) batch: each held
+    to the twin, every output in the full shape."""
+    depths = (100.0, 50.0)
+    p, t, td = chip_smoke.mix_columns(777, 35, seed=4, dtype=dtype,
+                                      device=device)
+    if layout.startswith('broadcast'):
+        p = torch.tensor(ERA5_LEVELS, dtype=dtype, device=device)
+        ground = torch.arange(777, device=device) % 6
+        below = torch.arange(35, device=device) < ground[:, None]
+        t, td = (x.masked_fill(below, torch.nan) for x in (t, td))
+        if layout == 'broadcast_rows':
+            p = p.expand(t.shape)
+    elif layout == 'transposed':
+        p = p.t().contiguous().t()
+    else:
+        p, t, td = (x.reshape(21, 37, 35) for x in (p, t, td))
+    got = mix_held(f'mix {layout}', p, t, td, depths)
+    assert all(g.shape == t.shape for g in got[0::6])
+    assert all(g.shape == t.shape[:-1] for g in got[3::6])
+
+
+@pytest.mark.parametrize('dtype', [torch.float64, torch.float32])
+def test_mix_layers_gradient_with_1d_pressure(device, dtype):
+    """A 1-D pressure that requires grad, as on the CPU
+    (test_torch_pipeline): the kernel's outputs in the full shape, and
+    every input's gradient (the twin's VJP) equal to the twin's own
+    autograd on the card, the pressure's in its (L,) shape, up to the
+    order of the neighbour scans' atomic sums."""
+    p, t, td = (x[::15] for x in chip_smoke.mix_columns(
+        1500, 35, seed=8, dtype=dtype, device=device))
+    depths = (100.0, 50.0)
+
+    def grads(fn):
+        xs = [p[0].clone().requires_grad_(), t.clone().requires_grad_(),
+              td.clone().requires_grad_()]
+        outs = fn(*xs, depths)
+        loss = sum((torch.where(torch.isfinite(o), o, 0.0) * (k + 1)).sum()
+                   for k, o in enumerate(outs))
+        return outs, torch.autograd.grad(loss, xs, allow_unused=True)
+
+    outs, got = grads(parcels.mix_layers_kernel)
+    assert outs[0].grad_fn.kernel is parcels.mix_layers_kernel
+    assert all(o.shape == t.shape for o in outs[0::6])
+    _, want = grads(parcels._mix_layers_twin)
+    assert got[0].shape == p[0].shape and got[0].abs().sum() > 0
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=tol, atol=tol, equal_nan=True)
+
+
+def test_mix_layers_kernel_long_rows(device):
+    """Rows too long for a tile of several (6,000 float64 levels, 198 KB of
+    shared memory): a row a block, in opt-in shared memory, its levels
+    over the 32 lanes of a warp."""
+    depths = (100.0, 50.0)
+    p, t, td = chip_smoke.mix_columns(9, 6_000, seed=2, device=device)
+    mix_held('mix long rows', p, t, td, depths)
+
+
 # --- every kernel through the seam (_kernels) --------------------------------
 
-KERNELS = ['solve', 'prepass', 'tail', 'neighbors']
+KERNELS = ['solve', 'prepass', 'tail', 'neighbors', 'mix']
 
 
 def card_case(name, device, coeffs, n=40, L=30):
@@ -318,9 +436,13 @@ def card_case(name, device, coeffs, n=40, L=30):
         return diag.diag_kernel, args, lambda k: (
             diag.diag_fused(*(x.reshape(4, k // 4, L)
                               for x in first(k, args)))[0], (4, k // 4))
-    args = chip_smoke.neighbor_columns(n, L, device=device)
-    return parcels.bridge_neighbors_kernel, args, lambda k: (
-        parcels.bridge_neighbors(*first(k, args))[0], (k, L))
+    if name == 'neighbors':
+        args = chip_smoke.neighbor_columns(n, L, device=device)
+        return parcels.bridge_neighbors_kernel, args, lambda k: (
+            parcels.bridge_neighbors(*first(k, args))[0], (k, L))
+    args = (*chip_smoke.mix_columns(n, L, device=device), (100.0, 50.0))
+    return parcels.mix_layers_kernel, args, lambda k: (
+        parcels.mix_layers(*first(k, args))[0][0]['pressure'], (k, L))
 
 
 def outputs(out):
@@ -377,11 +499,18 @@ def rejected(name, args):
         own = [(swap(0, args[0].float()), TypeError),
                (swap(1, args[1][:, :-1]), ValueError),
                (tuple(x[0] for x in args), ValueError)]
-    else:
+    elif name == 'neighbors':
         p, valid = args
         own = [(swap(1, valid.to(torch.uint8)), TypeError),
                (swap(1, valid[:, :-1]), ValueError),
                (swap(1, valid[0]), ValueError)]
+    else:
+        p, t, td, depths = args
+        own = [(swap(0, p.float()), TypeError),
+               (swap(0, p[:, :-1]), ValueError),
+               (swap(2, td[:-1]), ValueError),
+               (swap(3, ()), ValueError),
+               (swap(3, (150.0, 100.0, 50.0)), ValueError)]
     return common + own
 
 
@@ -469,8 +598,36 @@ def neighbors_gradient(device, coeffs):
             lambda: grad(parcels._bridge_neighbors_twin), check)
 
 
+def mix_gradient(device, coeffs):
+    """Through the mixed-layer kernel: the gradient (the twin's VJP on the
+    card) equal to the twin's own autograd there, up to the order of
+    float64 sums (the neighbour scans' backward scatters with atomics)."""
+    p, t, td = chip_smoke.mix_columns(301, 35, seed=9, device=device)
+    depths = (100.0, 50.0)
+
+    def grad(fn):
+        xs = [x.clone().requires_grad_() for x in (p, t, td)]
+        outs = fn(*xs, depths)
+        loss = sum((torch.where(torch.isfinite(o), o, 0.0) * (k + 1)).sum()
+                   for k, o in enumerate(outs))
+        return torch.autograd.grad(loss, xs, allow_unused=True)
+
+    def check(got, want):
+        assert any(g is not None and g.nan_to_num().abs().sum() > 0
+                   for g in got)
+        for a, b in zip(got, want):
+            assert (a is None) == (b is None)
+            if a is not None:
+                torch.testing.assert_close(a, b, rtol=1e-12, atol=1e-12,
+                                           equal_nan=True)
+
+    return ((parcels.mix_layers_kernel,),
+            lambda: grad(parcels.mix_layers_kernel),
+            lambda: grad(parcels._mix_layers_twin), check)
+
+
 GRADIENTS = {'solve': solve_gradient, 'tail': tail_gradient,
-             'neighbors': neighbors_gradient}
+             'neighbors': neighbors_gradient, 'mix': mix_gradient}
 
 
 @pytest.mark.parametrize('name', list(GRADIENTS))

@@ -464,6 +464,7 @@ def test_fused_pipeline_runs_both_functions(tables):
         out = tpipeline.conv_properties_fused(x, tables=tables)
     finally:
         _kernels.KernelCall.forward = staticmethod(forward)
-    assert seen == {'pre-pass', 'CAPE/CIN', 'diagnostics-tail'}
+    assert seen == {'pre-pass', 'CAPE/CIN', 'diagnostics-tail',
+                    'mixed-layer'}
     scalar_loss(out).backward()
     assert torch.isfinite(x['temperature'].grad).all()

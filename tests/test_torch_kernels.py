@@ -1,5 +1,5 @@
 """The seam every hand-written kernel is called through (``_kernels``), on
-the CPU, once for each of the four kernels.
+the CPU, once for each of the five kernels.
 
 A CPU tensor runs the kernel's plain twin and counts no launch; the meta
 device, which has no kernel, raises; an input the kernel declares
@@ -50,11 +50,17 @@ def neighbors_args(tables, dtype):
     return p.nan_to_num(500.0, 1100.0, 1.0), valid
 
 
+def mix_args(tables, dtype):
+    return (*chip_smoke.mix_columns(30, 20, seed=6, dtype=dtype),
+            (100.0, 50.0))
+
+
 KERNELS = {
     'solve': (tfused.cape_cin_kernel, solve_args),
     'prepass': (tfused.prepass_kernel, prepass_args),
     'tail': (tdiag.diag_kernel, tail_args),
     'neighbors': (tparcels.bridge_neighbors_kernel, neighbors_args),
+    'mix': (tparcels.mix_layers_kernel, mix_args),
 }
 
 

@@ -288,6 +288,77 @@ def test_bridge_neighbors_kernel_rejects_off_the_card():
     assert tparcels.bridge_neighbors_kernel.launches == before
 
 
+@pytest.mark.parametrize('layout', ['rows', 'broadcast', 'grid', '1-D'])
+@pytest.mark.parametrize('depths', [(100.0,), (100.0, 50.0)])
+@pytest.mark.parametrize('dtype', [torch.float64, torch.float32])
+def test_mix_layers_is_the_composition_on_the_cpu(dtype, depths, layout):
+    """On CPU tensors ``mix_layers`` launches nothing and equals, bit for
+    bit, what the fused pipelines composed before it: ``conserved_fields``,
+    ``bridge_neighbors`` over the levels where p, t and td hold a number,
+    then ``mix_layer(grow=False)`` at each depth; and ``mix_layer`` making
+    its own (the reduced pipeline's former call).  On the hard rows of
+    chip_smoke.mix_columns, with 1-D levels broadcast to the rows, on a
+    (ny, nx, L) batch, and with the 1-D levels themselves, where every
+    output takes the full shape and holds the composition's values
+    broadcast."""
+    p, t, td = chip_smoke.mix_columns(60, 24, seed=3, dtype=dtype)
+    if layout == 'broadcast':
+        p = p[0].expand_as(t)
+    elif layout == '1-D':
+        p = p[0]
+    elif layout == 'grid':
+        p, t, td = (x.reshape(4, 15, 24) for x in (p, t, td))
+    before = tparcels.mix_layers_kernel.launches
+    got = tparcels.mix_layers(p, t, td, depths)
+    assert tparcels.mix_layers_kernel.launches == before
+    cons = tparcels.conserved_fields(p, t, td)
+    nbrs = tparcels.bridge_neighbors(p, ~(torch.isnan(p) | torch.isnan(t) |
+                                          torch.isnan(td)))
+    assert len(got) == len(depths)
+    for (fields, parcel), depth in zip(got, depths):
+        for want in (tparcels.mix_layer(p, t, td, depth=depth,
+                                        conserved=cons, neighbors=nbrs,
+                                        grow=False),
+                     tparcels.mix_layer(p, t, td, depth=depth, grow=False)):
+            for a, b in zip((fields, parcel), want):
+                assert list(a) == list(b)
+                assert all(v.shape == t.shape[:t.dim() - (a is parcel)]
+                           for v in a.values())
+                chip_smoke.same_bits(f'{layout} {depth}', list(a.values()),
+                                     [w.expand_as(v) for v, w in
+                                      zip(a.values(), b.values())])
+
+
+@pytest.mark.parametrize('dtype', [torch.float64, torch.float32])
+def test_mix_layers_gradient_with_1d_pressure(dtype):
+    """A 1-D pressure that requires grad: ``mix_layers`` takes the seam's
+    Function on the CPU and gives every input the gradient of the twin's
+    own autograd, bit for bit, the pressure's in its own (L,) shape.  On
+    chip_smoke.mix_columns' plain soundings, under the first one's
+    levels."""
+    p, t, td = (x[::15] for x in chip_smoke.mix_columns(150, 24, seed=8,
+                                                         dtype=dtype))
+    depths = (100.0, 50.0)
+
+    def grads(fn):
+        xs = [p[0].clone().requires_grad_(), t.clone().requires_grad_(),
+              td.clone().requires_grad_()]
+        outs = fn(*xs, depths)
+        loss = sum((torch.where(torch.isfinite(o), o, 0.0) * (k + 1)).sum()
+                   for k, o in enumerate(outs))
+        return outs, torch.autograd.grad(loss, xs, allow_unused=True)
+
+    outs, got = grads(tparcels.mix_layers_kernel)
+    assert outs[0].grad_fn.kernel is tparcels.mix_layers_kernel
+    assert all(o.shape == t.shape for o in outs[0::6])
+    twin_outs, want = grads(tparcels._mix_layers_twin)
+    chip_smoke.same_bits('outputs', [o.detach() for o in outs],
+                         [o.detach() for o in twin_outs])
+    assert got[0].shape == p[0].shape
+    assert got[0].abs().sum() > 0
+    chip_smoke.same_bits('gradients', got, want)
+
+
 @pytest.mark.parametrize('case', [
     ('1-D levels', (7,), None, (5, 7), 0, False),
     ('(1, L) row', (1, 7), None, (5, 7), 0, False),

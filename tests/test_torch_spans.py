@@ -33,18 +33,18 @@ DATASET = {'xparcel.dataset.lower': (1, None),
            'xparcel.pipeline.outputs': (1, 'xparcel.pipeline'),
            'xparcel.prep.dewpoint': (1, 'xparcel.pipeline'),
            'xparcel.kernel.tail': (1, 'xparcel.pipeline')}
-# Each span's (count, innermost enclosing span) in a Dataset call.
+# Each span's (count, innermost enclosing span) in a Dataset call.  The
+# mixed layers of a call sit in one span (parcels.mix_layers); on the CPU
+# its twin's conserved fields and neighbours nest in it.
 SPANS = {
     'conv_properties_fused': {
         **DATASET,
         'xparcel.prep.most_unstable': (1, 'xparcel.pipeline'),
-        'xparcel.prep.conserved': (1, 'xparcel.pipeline'),
-        'xparcel.prep.neighbors': (1, 'xparcel.pipeline'),
-        'xparcel.prep.mix_layer': (2, 'xparcel.pipeline'),
+        'xparcel.prep.conserved': (1, 'xparcel.prep.mix_layer'),
+        'xparcel.prep.neighbors': (1, 'xparcel.prep.mix_layer'),
+        'xparcel.prep.mix_layer': (1, 'xparcel.pipeline'),
         'xparcel.prep.prepass': (3, 'xparcel.pipeline'),
         'xparcel.kernel.solve': (3, 'xparcel.pipeline')},
-    # Given neither conserved fields nor neighbours, mix_layer makes its
-    # own: prep spans nested in a prep span.
     'min_conv_properties_fused': {
         **DATASET,
         'xparcel.prep.conserved': (1, 'xparcel.prep.mix_layer'),

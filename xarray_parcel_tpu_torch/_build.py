@@ -186,12 +186,14 @@ def launch(name, device, pointers, batch, *widths):
     (``_kernels.Kernel`` is the one caller).
 
     Every launcher has the C signature ``int name(void *..., int64_t B,
-    int..., void *stream)``: ``pointers`` are the tensors' data pointers,
-    ``batch`` the column count B and ``widths`` the int sizes that follow
-    it.  Raises if the launch reports a CUDA error."""
+    int or double..., void *stream)``: ``pointers`` are the tensors' data
+    pointers, ``batch`` the column count B and ``widths`` the sizes that
+    follow it, a Python int as a C int and a float as a double.  Raises if
+    the launch reports a CUDA error."""
     fn = getattr(load_library(), name)
     fn.argtypes = ([ctypes.c_void_p] * len(pointers) + [ctypes.c_int64] +
-                   [ctypes.c_int] * len(widths) + [ctypes.c_void_p])
+                   [ctypes.c_double if isinstance(w, float) else ctypes.c_int
+                    for w in widths] + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream

@@ -1,4 +1,4 @@
-// Device helpers shared by the port's four kernels: the working type's
+// Device helpers shared by the port's kernels: the working type's
 // transcendentals, NaN and infinity, the NaN-keeping sign, and, for the two
 // that solve a column with one warp, its lanes striding over the levels
 // (fused_cape.cu, diag_tail.cu), the warp reductions and the duplicate-aware
@@ -19,6 +19,10 @@ __device__ __forceinline__ float dexp(float x) { return expf(x); }
 __device__ __forceinline__ double dexp(double x) { return exp(x); }
 __device__ __forceinline__ float dlog(float x) { return logf(x); }
 __device__ __forceinline__ double dlog(double x) { return log(x); }
+__device__ __forceinline__ float dpow(float x, float y) { return powf(x, y); }
+__device__ __forceinline__ double dpow(double x, double y) {
+  return pow(x, y);
+}
 __device__ __forceinline__ float dabs(float x) { return fabsf(x); }
 __device__ __forceinline__ double dabs(double x) { return fabs(x); }
 

@@ -60,26 +60,6 @@ constexpr double kLnPTop = 7.003065458786462;     // ln 1100 hPa
 constexpr double kTMin = 173.0;
 constexpr double kCurveSpacing = 0.01;            // K between curves
 
-__device__ __forceinline__ float dpow(float x, float y) { return powf(x, y); }
-__device__ __forceinline__ double dpow(double x, double y) {
-  return pow(x, y);
-}
-
-// x / c for a constant c, as the card's torch divides by a Python number.
-template <typename T> __device__ __forceinline__ T div_c(T x, double c) {
-  return x * (T(1) / T(c));
-}
-
-// thermo.py, op for op.
-template <typename T> __device__ __forceinline__ T dewpoint(T e) {
-  const T val = dlog(div_c(e, kSatPressure0c));
-  return T(kZeroC) + T(243.5) * val / (T(17.67) - val);
-}
-
-template <typename T> __device__ __forceinline__ T vapor_pressure(T p, T w) {
-  return p * w / (w + T(kEpsilon));
-}
-
 // dT/dln p = p * moist_lapse_rate(p, T) at p = exp(lp): adiabat.rk4_step's
 // f.
 template <typename T> __device__ __forceinline__ T lapse(T lp, T t) {

@@ -1,4 +1,5 @@
-// Point thermodynamics shared by fused_cape.cu, prepass.cu and diag_tail.cu:
+// Point thermodynamics shared by the kernels (fused_cape.cu, prepass.cu,
+// diag_tail.cu, mix_layer.cu):
 // constants.py's values and thermo.py's functions, op for op as the plain
 // twins' torch ops (tests/test_torch_adiabat.py holds the constants).
 
@@ -16,6 +17,7 @@ constexpr double kEpsilon = 0.6219569100577033;
 constexpr double kSatPressure0c = 6.112;
 constexpr double kZeroC = 273.15;
 constexpr double kVirtualEps = 0.608;
+constexpr double kP0 = 1000.0;  // hPa, of theta and the Exner function
 
 constexpr int kScalars = 6;  // fused.SCALARS: lcl_p, lcl_t, lcl_vt, w0, t0, p0
 
@@ -42,6 +44,31 @@ __device__ __forceinline__ T mixing_ratio(T t, T td, T p) {
 template <typename T>
 __device__ __forceinline__ T virtual_temperature(T t, T w) {
   return t * (T(1) + T(kVirtualEps) * w);
+}
+
+// x / c for a constant c, as the card's torch divides by a Python number.
+template <typename T> __device__ __forceinline__ T div_c(T x, double c) {
+  return x * (T(1) / T(c));
+}
+
+// Dewpoint from the vapour pressure e.
+template <typename T> __device__ __forceinline__ T dewpoint(T e) {
+  const T val = dlog(div_c(e, kSatPressure0c));
+  return T(kZeroC) + T(243.5) * val / (T(17.67) - val);
+}
+
+// Vapour pressure at p of mixing ratio w.
+template <typename T> __device__ __forceinline__ T vapor_pressure(T p, T w) {
+  return p * w / (w + T(kEpsilon));
+}
+
+template <typename T> __device__ __forceinline__ T exner_function(T p) {
+  return dpow(div_c(p, kP0), T(kKappa));
+}
+
+template <typename T>
+__device__ __forceinline__ T potential_temperature(T p, T t) {
+  return t / exner_function(p);
 }
 
 }  // namespace

@@ -7,8 +7,10 @@ downstream op is first-valid-index aware.
 
 On a CUDA tensor :func:`bridge_neighbors` runs in the hand-written kernel
 ``csrc/neighbors.cu`` (a thread per row, the tile staged in shared
-memory); on a CPU tensor in its plain twin ``_bridge_neighbors_twin``,
-both through the seam (:mod:`._kernels`).
+memory), and :func:`mix_layers`, every mixed layer of a fused pipeline
+call, in ``csrc/mix_layer.cu`` (likewise); on a CPU tensor each runs in
+its plain twin (``_bridge_neighbors_twin``, ``_mix_layers_twin``), all
+through the seam (:mod:`._kernels`).
 """
 
 import torch
@@ -241,23 +243,123 @@ def mix_layer(pressure, temperature, dewpoint, depth=100.0, conserved=None,
     pipelines' path).
     """
     with span('xparcel.prep.mix_layer'):
-        mp = mixed_parcel(pressure, temperature, dewpoint, depth=depth,
-                          conserved=conserved, neighbors=neighbors)
-        keep = pressure < (nanmax(pressure) - depth)[..., None]
-        masked = {
-            'pressure': torch.where(keep, pressure, torch.nan),
-            'temperature': torch.where(keep, temperature, torch.nan),
-            'dewpoint': torch.where(keep, dewpoint, torch.nan),
-        }
-        if grow:
-            return insert_level(masked, mp), mp
-        kept = notnan(masked['pressure'])
-        first_kept = torch.argmax(kept.to(torch.uint8), dim=-1)
-        slot = torch.where(kept.any(-1), first_kept - 1, 0)[..., None]
-        at = torch.arange(pressure.shape[-1], device=pressure.device) == slot
-        out = {k: torch.where(at, mp[k][..., None], masked[k])
-               for k in masked}
-        return out, mp
+        return _mix_layer(pressure, temperature, dewpoint, depth, conserved,
+                          neighbors, grow)
+
+
+def _mix_layer(pressure, temperature, dewpoint, depth, conserved, neighbors,
+               grow):
+    """:func:`mix_layer` outside its span."""
+    mp = mixed_parcel(pressure, temperature, dewpoint, depth=depth,
+                      conserved=conserved, neighbors=neighbors)
+    keep = pressure < (nanmax(pressure) - depth)[..., None]
+    masked = {
+        'pressure': torch.where(keep, pressure, torch.nan),
+        'temperature': torch.where(keep, temperature, torch.nan),
+        'dewpoint': torch.where(keep, dewpoint, torch.nan),
+    }
+    if grow:
+        return insert_level(masked, mp), mp
+    kept = notnan(masked['pressure'])
+    first_kept = torch.argmax(kept.to(torch.uint8), dim=-1)
+    slot = torch.where(kept.any(-1), first_kept - 1, 0)[..., None]
+    at = torch.arange(pressure.shape[-1], device=pressure.device) == slot
+    out = {k: torch.where(at, mp[k][..., None], masked[k])
+           for k in masked}
+    return out, mp
+
+
+def _mix_layers_twin(pressure, temperature, dewpoint, depths):
+    """:func:`mix_layers` as plain torch ops (the kernel's twin): the
+    conserved fields and the neighbour scans of the shared level mask, then
+    ``mix_layer(grow=False)``'s body at each depth (inside the one span of
+    :func:`mix_layers`).  Returns, depth after depth, the field pressure,
+    temperature and dewpoint, then the parcel's, each in the full shape: a
+    pressure that broadcasts to the temperature's is taken as its broadcast
+    view, as the kernel reads it."""
+    _check_depths(depths)
+    pressure = pressure.expand(temperature.shape)
+    conserved = conserved_fields(pressure, temperature, dewpoint)
+    neighbors = bridge_neighbors(pressure, ~(torch.isnan(pressure) |
+                                             torch.isnan(temperature) |
+                                             torch.isnan(dewpoint)))
+    out = ()
+    for depth in depths:
+        fields, parcel = _mix_layer(pressure, temperature, dewpoint, depth,
+                                    conserved, neighbors, grow=False)
+        out += (*fields.values(), *parcel.values())
+    return out
+
+
+def _check_depths(depths):
+    """One or two depths: what one launch of ``csrc/mix_layer.cu`` takes
+    (its ``kMaxDepths``), and all that the fused pipelines ask for."""
+    if not 1 <= len(depths) <= 2:
+        raise ValueError(f'mix_layers takes one or two depths, not '
+                         f'{len(depths)}')
+
+
+def _mix_layers_on_card(launch, pressure, temperature, dewpoint, depths):
+    """:data:`mix_layers_kernel` on CUDA tensors: one launch of the
+    library's ``mix_layers_<dtype>``."""
+    shape = temperature.shape
+    _check_depths(depths)
+    if (temperature.dim() == 0 or dewpoint.shape != shape
+            or pressure.dim() == 0 or pressure.dim() > len(shape)
+            or pressure.shape[-1] != shape[-1]
+            or any(s not in (1, v) for s, v in zip(pressure.shape[::-1],
+                                                   shape[::-1]))):
+        raise ValueError(f'pressure {tuple(pressure.shape)}, temperature '
+                         f'{tuple(shape)} and dewpoint '
+                         f'{tuple(dewpoint.shape)}: the last two must share '
+                         f'a shape that the pressure broadcasts to')
+    D = len(depths)
+    # One allocation for the fields and one for the parcels of every depth.
+    fields = torch.empty((D, 3, *shape), dtype=temperature.dtype,
+                         device=temperature.device)
+    parcel = torch.empty((D, 3, *shape[:-1]), dtype=temperature.dtype,
+                         device=temperature.device)
+    if fields.numel() > 0:
+        rows, row_stride = _kernel_rows(pressure, shape)
+        B, L = rows.shape
+        t = temperature.reshape(B, L).contiguous()
+        td = dewpoint.reshape(B, L).contiguous()
+        ds = [float(d) for d in depths]
+        launch('mix_layers', [rows.data_ptr(), t.data_ptr(), td.data_ptr(),
+                              fields.data_ptr(), parcel.data_ptr()],
+               B, L, row_stride, D, *ds, *[0.0] * (2 - D))
+    return tuple(x for f, c in zip(fields, parcel) for x in (*f, *c))
+
+
+#: :func:`mix_layers` as one kernel call: (pressure, temperature, dewpoint,
+#: depths) to the flat tuple of :func:`_mix_layers_twin`; one or two
+#: depths.  CUDA tensors go to the hand-written kernel
+#: (``mix_layers_kernel.launches`` counts each launch, one a call):
+#: float32 or float64, temperature and dewpoint of one shape, the pressure
+#: broadcasting to it, read in place where its rows are one row or
+#: contiguous (else copied).  On either device every output takes the full
+#: shape.  A row's levels must fit one block's
+#: shared memory: some 13,000 in float32, 7,000 in float64.  CPU tensors
+#: go to the plain twin.
+#: The three fields take a gradient, through the twin's VJP.
+mix_layers_kernel = Kernel('mixed-layer', _mix_layers_twin,
+                           _mix_layers_on_card, differentiable=(0, 1, 2))
+
+
+def mix_layers(pressure, temperature, dewpoint, depths):
+    """``mix_layer(pressure, temperature, dewpoint, depth=d, grow=False)``
+    for each depth ``d`` (hPa) of the sequence ``depths`` (one or two),
+    with the conserved fields and the neighbour scans over the levels where
+    all three inputs hold a number computed once for all: a list of
+    (fields, parcel) dict pairs, one a depth, each field of the
+    temperature's shape (a 1-D pressure's values broadcast).  Through
+    :data:`mix_layers_kernel`."""
+    with span('xparcel.prep.mix_layer'):
+        out = mix_layers_kernel(pressure, temperature, dewpoint,
+                                tuple(depths))
+    keys = ('pressure', 'temperature', 'dewpoint')
+    return [(dict(zip(keys, out[i:i + 3])), dict(zip(keys, out[i + 3:i + 6])))
+            for i in range(0, len(out), 6)]
 
 
 def most_unstable_cape_cin(pressure, temperature, dewpoint, depth=300.0,

@@ -10,12 +10,14 @@ The modular pipelines ``conv_properties`` and ``min_conv_properties``
 build every parcel profile (``cape.cape_cin``) and are plain torch on
 either device, but for the mixed layers' neighbour scans
 (``parcels.bridge_neighbors``), which run in the ``csrc/neighbors.cu``
-kernel on CUDA tensors in every pipeline.  In the fused ones,
-``conv_properties_fused`` and ``min_conv_properties_fused``, each CAPE/CIN
-solve runs on CUDA tensors in the ``csrc/prepass.cu`` and
-``csrc/fused_cape.cu`` kernels and the diagnostics tail (t850/td850, lapse
-rate and t500, freezing and melting levels) in the ``csrc/diag_tail.cu``
-kernel, once per call.
+kernel on CUDA tensors.  In the fused ones, ``conv_properties_fused`` and
+``min_conv_properties_fused``, the mixed layers of a call run on CUDA
+tensors in one launch of the ``csrc/mix_layer.cu`` kernel
+(``parcels.mix_layers``; with ``mix_grow``, the modular path's code), each
+CAPE/CIN solve in the ``csrc/prepass.cu`` and ``csrc/fused_cape.cu``
+kernels and the diagnostics tail (t850/td850, lapse rate and t500,
+freezing and melting levels) in the ``csrc/diag_tail.cu`` kernel, once
+per call.
 """
 
 import torch
@@ -27,7 +29,7 @@ from .fieldset import annotate
 from .fused import fused_cape_cin
 from .ops import interp_many
 from .parcels import (bridge_neighbors, conserved_fields,
-                      from_most_unstable_parcel, mix_layer,
+                      from_most_unstable_parcel, mix_layer, mix_layers,
                       mixed_layer_cape_cin, most_unstable_cape_cin)
 
 
@@ -174,16 +176,17 @@ def conv_properties_fused(dat, ignore_nans=False, tables=None,
         mu_fields, mu_parcel = from_most_unstable_parcel(p, t, dew,
                                                          depth=250.0)
         mu = _fused_solve(mu_fields, mu_parcel, tables)
-        cons = conserved_fields(p, t, dew)
-        nbrs = bridge_neighbors(p, ~(torch.isnan(p) | torch.isnan(t) |
-                                     torch.isnan(dew)))
-        m100_fields, m100_parcel = mix_layer(p, t, dew, depth=100.0,
-                                             conserved=cons, neighbors=nbrs,
-                                             grow=mix_grow)
+        if mix_grow:
+            cons = conserved_fields(p, t, dew)
+            nbrs = bridge_neighbors(p, ~(torch.isnan(p) | torch.isnan(t) |
+                                         torch.isnan(dew)))
+            mixed = [mix_layer(p, t, dew, depth=depth, conserved=cons,
+                               neighbors=nbrs)
+                     for depth in (100.0, 50.0)]
+        else:
+            mixed = mix_layers(p, t, dew, (100.0, 50.0))
+        (m100_fields, m100_parcel), (m50_fields, m50_parcel) = mixed
         m100 = _fused_solve(m100_fields, m100_parcel, tables)
-        m50_fields, m50_parcel = mix_layer(p, t, dew, depth=50.0,
-                                           conserved=cons, neighbors=nbrs,
-                                           grow=mix_grow)
         m50 = _fused_solve(m50_fields, m50_parcel, tables)
 
         t850, td850, lapse, temp_500, flh, mlh = diag.diag_fused(
@@ -236,8 +239,7 @@ def min_conv_properties_fused(dat, tables=None, with_attrs=False):
         with span('xparcel.prep.dewpoint'):
             dew = thermo.dewpoint_from_specific_humidity(p, t, q)
 
-        m100_fields, m100_parcel = mix_layer(p, t, dew, depth=100.0,
-                                             grow=False)
+        (m100_fields, m100_parcel), = mix_layers(p, t, dew, (100.0,))
         res = _fused_solve(m100_fields, m100_parcel, tables)
         _, _, lapse, temp_500, flh, mlh = diag.diag_fused(
             p, t, dew, dat['height_asl'])
