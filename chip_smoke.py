@@ -5,23 +5,26 @@
 Builds the port's CUDA kernels from ``xarray_parcel_tpu_torch/csrc`` with
 ``nvcc`` (the CAPE/CIN solve ``fused_cape.cu``, the diagnostics tail
 ``diag_tail.cu``, the solve's pre-pass ``prepass.cu``, the neighbours
-``neighbors.cu`` and the mixed layers ``mix_layer.cu``; ptxas's registers
-and spills are printed), builds the
-moist-adiabat coefficients on the card, holds the solve and the tail
-against their plain PyTorch twins (float64 and float32 on hard columns of
-90 levels, and of 33 and 137 levels with the hard cases across the lanes
-31/32 and 63/64 of the warp that strides over a column; the solve also
-with its profile tracks), the pre-pass through the solve's arguments,
-then times the first three at the main path's shape against their bound
-and holds the timed outputs against each other there.  The neighbours
+``neighbors.cu``, the mixed layers ``mix_layer.cu`` and the most-unstable
+prep ``most_unstable.cu``; ptxas's registers and spills are printed),
+builds the moist-adiabat coefficients on the card, holds the solve and the
+tail against their plain PyTorch twins (float64 and float32 on hard
+columns of 90 levels, and of 33 and 137 levels with the hard cases across
+the lanes 31/32 and 63/64 of the warp that strides over a column; the
+solve also with its profile tracks), the pre-pass through the solve's
+arguments, then times the first three at the main path's shape against
+their bound and holds the timed outputs against each other there.  The neighbours
 kernel is held to its twin bit for bit at the three device cells' shapes
 and timed there beside the twin, the two library scans alone and its
 bound.  The mixed-layer kernel is held to its twin (the fields bit for
 bit, the parcels within ``MIX_TOL``) on hard rows in both dtypes and at
 the three device cells' shapes on each cell's own columns (``parcelbench``'s
-generator), timed there beside the twin and its bound; and each cell's
+generator), timed there beside the twin and its bound.  The most-unstable
+kernel is held to its twin bit for bit on hard rows of 1 to 137 levels in
+both dtypes at both depths and at the three cells' shapes on their own
+columns, timed there beside the twin and its bound; and each cell's
 pipeline call is split into card time by the span that launched each
-kernel, with the kernel and with its twin in its place.
+kernel, with the most-unstable kernel and with its twin in its place.
 Then it drives the public entry points -- ``fused_surface_cape_cin``,
 ``conv_properties_fused``, ``min_conv_properties_fused`` and
 ``storm_proxies`` -- at 786,432
@@ -95,6 +98,10 @@ TAIL_COLUMNS = 4099             # hard columns of the tail check
 EDGE_LEVELS = (33, 137)         # other widths, around the lanes' wrap
 EDGE_COLUMNS = 1031             # x4 parcel variants for the solve
 MIX_COLUMNS = 4103              # hard rows of the mixed-layer check
+MU_COLUMNS = 4111               # hard rows of the most-unstable check
+# The most-unstable check's widths: one level up to the longest model
+# levels, the device cells' 13, 35 and 90, and EDGE_LEVELS.
+MU_LEVELS = (1, 2, 13, 33, 35, 90, 137)
 kWarp = 32                      # lanes of a warp, each striding over levels
 GRID = (768, 1024)              # the Dataset's horizontal grid: MAIN_COLUMNS
 SMALL_GRID = (64, 128)          # the mixed-dims Dataset (1-D pressure)
@@ -1160,6 +1167,146 @@ def mix_work(p, t, depths):
     return item * (2 * B * L + rows * L + 3 * D * B * (L + 1)), 0
 
 
+# chip_smoke.mu_columns' kinds of row, in turn.
+MU_KINDS = 16
+# The most-unstable prep's depths: the fused pipelines' and the default.
+MU_DEPTHS = (250.0, 300.0)
+
+
+def mu_columns(n, L, seed=41, dtype=torch.float64, device='cpu'):
+    """(pressure, temperature, dewpoint), each (n, L), for the
+    most-unstable kernel's hard cases, by row in turn (``MU_KINDS``):
+    plain soundings; t and td NaN below ground (a NaN-led layer under a
+    numeric pressure); a NaN-led pressure; interior NaN pressures; an
+    interior NaN temperature; all NaN; no temperature at all (no parcel);
+    a tie of ``bound_pressure`` at each of ``MU_DEPTHS`` (two levels
+    equally far from the layer's bound, the one below it the most
+    unstable, which the larger pressure's win leaves out of the layer); a
+    layer of one level (the next level 650 hPa up: shallower than one
+    level); a duplicated surface with another temperature; unsorted and
+    reversed pressures; a tie of theta-e between the surface and a level
+    at its pressure with other t and td (the first level must win: the
+    pair is searched on ``device`` with thermo's theta-e, as the twin
+    computes it there; a row with no exact tie among the candidates is
+    left with the nearest); the surface repeated outright; and levels
+    exactly on the layer's bound at each depth.  Each kind that needs
+    more levels than a row has is left plain there."""
+    rng = np.random.default_rng(seed)
+    p = np.linspace(1010.0, 150.0, L) + rng.normal(0, 0.4, (n, L))
+    p = -np.sort(-p, axis=-1)
+    t, td = _sounding(p, rng)
+    ties = []
+    for i in range(n):
+        kind, a = i % MU_KINDS, int(rng.integers(1, 4))
+        pi, ti, di = p[i], t[i], td[i]
+        if kind == 1:
+            ti[:a] = di[:a] = np.nan
+        elif kind == 2:
+            pi[:a] = ti[:a] = di[:a] = np.nan
+        elif kind == 3 and L > 2:
+            pi[1:1 + a] = np.nan
+        elif kind == 4 and L > 2:
+            ti[1:1 + a] = np.nan
+        elif kind == 5:
+            pi[:] = ti[:] = di[:] = np.nan
+        elif kind == 6:
+            ti[:] = np.nan
+        elif kind in (7, 8) and L > 3:
+            pi[0] = np.round(pi[0])
+            bound = pi[0] - MU_DEPTHS[kind - 7]
+            k = int(np.argmax(pi < bound)) - 1
+            if 0 < k < L - 2:
+                pi[k], pi[k + 1] = bound + 2.0, bound - 2.0
+                ti[k + 1] = ti[0] + 8.0
+                di[k + 1] = ti[k + 1] - 0.5
+        elif kind == 9 and L > 1:
+            pi[1:] = np.linspace(pi[0] - 650.0, 100.0, L - 1)
+        elif kind == 10 and L > 1:
+            pi[1] = pi[0]
+            ti[1] = ti[0] + 0.7
+        elif kind == 11:
+            pi[:] = rng.permutation(pi)
+        elif kind == 12:
+            pi[:] = pi[::-1]
+        elif kind == 13 and L > 1:
+            pi[1] = pi[0]
+            ti[0] += 10.0
+            di[0] = ti[0] - 0.5
+            ties.append(i)
+        elif kind == 14 and L > 1:
+            pi[1], ti[1], di[1] = pi[0], ti[0], di[0]
+        elif kind == 15 and L > 3:
+            pi[0] = np.round(pi[0])
+            for depth in MU_DEPTHS:
+                k = int(np.argmax(pi < pi[0] - depth))
+                if 0 < k < L:
+                    pi[k] = pi[0] - depth
+    p[~np.isfinite(p)] = np.nan
+    p, t, td = (torch.as_tensor(x, dtype=dtype, device=device)
+                for x in (p, t, td))
+    if ties:
+        rows = torch.as_tensor(ties, device=device)
+        t[rows, 1], td[rows, 1] = theta_e_tie(p[rows, 0], t[rows, 0],
+                                              td[rows, 0])
+    return p, t, td
+
+
+# Inputs the plain ops take and the most-unstable kernel does not, made
+# what it takes by parcels.from_most_unstable_parcel on the card.
+MU_INPUTS = ('mixed dtypes', 'broadcast temperature', 'tensor depth',
+             'column depths', 'half')
+
+
+def mu_inputs(case, device='cpu'):
+    """Plain soundings of ``mu_columns`` (no constructed tie), 40 of 35
+    levels, and a depth, in the form ``case`` of ``MU_INPUTS``: float64
+    pressure over float32 fields, a temperature of one row under a (B, L)
+    pressure, a depth as a 0-d CPU tensor, a depth a column, or half
+    floats."""
+    p, t, td = (x[::MU_KINDS].to(device)
+                for x in mu_columns(40 * MU_KINDS, 35, seed=6))
+    depth = 250.0
+    if case == 'mixed dtypes':
+        t, td = t.float(), td.float()
+    elif case == 'half':
+        p, t, td = p.half(), t.half(), td.half()
+    elif case == 'broadcast temperature':
+        t = t[:1]
+    elif case == 'tensor depth':
+        depth = torch.tensor(250.0, dtype=torch.float64)
+    elif case == 'column depths':
+        depth = torch.linspace(100.0, 300.0, 40, dtype=torch.float64,
+                               device=device)
+    return p, t, td, depth
+
+
+def theta_e_tie(p, t, td, reach=24):
+    """For each (p, t, td), another (t, td) at the same p, each within
+    ``reach`` steps of a few ulps, whose theta-e (thermo's, on their
+    device) equals theirs exactly; where none does, the one nearest."""
+    step = 256 * torch.finfo(t.dtype).eps
+    j = torch.arange(-reach, reach + 1, device=t.device, dtype=t.dtype)
+    dt, dd = (x.reshape(-1) * step for x in torch.meshgrid(j, j,
+                                                           indexing='ij'))
+    other = (dt != 0) | (dd != 0)
+    dt, dd = dt[other], dd[other]
+    want = thermo.equivalent_potential_temperature(p, t, td)
+    tc, dc = t[:, None] + dt, td[:, None] + dd
+    got = thermo.equivalent_potential_temperature(p[:, None], tc, dc)
+    pick = (got - want[:, None]).abs().argmin(-1, keepdim=True)
+    return tc.gather(1, pick)[:, 0], dc.gather(1, pick)[:, 0]
+
+
+def mu_work(p, t):
+    """Bytes the most-unstable kernel needs: t and td read once, the
+    pressure once (one row where every row is that row), three fields and
+    three parcel values written once."""
+    B, L = t.shape
+    item = t.element_size()
+    rows = 1 if B > 1 and p.stride(0) == 0 else B
+    return item * (2 * B * L + rows * L + 3 * B * (L + 1)), 0
+
+
 def cell_columns(name, device, seed=1):
     """A device cell's columns of one time step, as ``parcelbench`` makes
     them from ``seed`` for the cell of deployment ``name`` (the ensemble's:
@@ -1301,7 +1448,8 @@ def same_bits(name, got, want):
         if not torch.equal(na, nb):
             raise AssertionError(f'{name}[{i}]: NaN patterns differ in '
                                  f'{int((na != nb).sum())} places')
-        ints = torch.int64 if a.dtype == torch.float64 else torch.int32
+        ints = {8: torch.int64, 4: torch.int32, 2: torch.int16}[
+            a.element_size()]
         off = int((a[~na].view(ints) != b[~nb].view(ints)).sum())
         if off:
             raise AssertionError(f'{name}[{i}]: {off} values differ')
@@ -1745,6 +1893,10 @@ def phase_tiers(dev, tab64, tab32, smi, solve_ms, tail_ms, pipeline_rate):
         parcels.mix_layers_kernel(*cols, depths),
         parcels._mix_layers_twin(*cols, depths), depths,
         mix_exact(*cols, depths))
+    for depth in MU_DEPTHS:
+        same_bits(f'15 adversarial float32 most-unstable {depth}',
+                  parcels.most_unstable_kernel(*cols, depth),
+                  parcels._most_unstable_twin(*cols, depth))
     del cols
     margs = tuple(x.contiguous() for x in (
         bp, bt, btd, *fused.prepass(bp, bp[:, 0], bt[:, 0], btd[:, 0],
@@ -1763,7 +1915,9 @@ def phase_tiers(dev, tab64, tab32, smi, solve_ms, tail_ms, pipeline_rate):
         f'columns) but for the mixed parcels\' outputs, and bit for bit the '
         f'pipeline with the mixed layers\' twin there, which is within the '
         f'whole budget; the mixed-layer kernel within {mix_err:.3g} of scale '
-        f'of its twin; the mixed parcels\' outputs NaN where the twin\'s, '
+        f'of its twin, the most-unstable kernel bit for bit its twin at '
+        f'depths {MU_DEPTHS}; the mixed parcels\' outputs NaN where the '
+        f'twin\'s, '
         f'{sum(beyond.values())} values of {MAIN_COLUMNS} x {len(beyond)} '
         f'beyond the budget\'s largest share ('
         + ', '.join(f'{k} {n}' for k, n in beyond.items() if n)
@@ -2006,7 +2160,7 @@ def main():
         f'parcel t and td within ' + ', '.join(
             f'{v:.3g}' for v in mix_err.values()) + ' of scale (float64, '
         f'then float32, held to the float64 twin)')
-    mix_rows, span_rows = {}, {}
+    mix_rows = {}
     for label, B, L, broadcast in NEIGHBOR_SHAPES:
         dat, ignore = cell_columns(label, dev)
         mp, mt = dat['pressure'], dat['temperature']
@@ -2031,6 +2185,49 @@ def main():
             f'{mkern_b:.3f} ms, plain twin {mtwin_a:.3f}/{mtwin_b:.3f} ms, '
             f'bound {mb[0]:.3f} ms by {mb[1]} ({smi}); parcels within '
             f'{err:.3g} of scale')
+        del got, want, dat, margs, mp, mt
+    # The most-unstable prep (parcels.from_most_unstable_parcel): kernel
+    # against plain twin, bit for bit, on the hard rows in both dtypes at
+    # both depths; then at the device cells' shapes on each cell's own
+    # columns, timed against the twin and the bound, and each cell's
+    # pipeline call split by span, with the kernel and with the twin (the
+    # composition it replaced) in its place.
+    for dtype in (torch.float64, torch.float32):
+        for L in MU_LEVELS:
+            cols = mu_columns(MU_COLUMNS, L, seed=L, dtype=dtype, device=dev)
+            for depth in MU_DEPTHS:
+                same_bits(f'most-unstable/{dtype}/L={L}/{depth}',
+                          parcels.most_unstable_kernel(*cols, depth),
+                          parcels._most_unstable_twin(*cols, depth))
+            del cols
+    log(f'[4 most-unstable] {MU_COLUMNS} hard rows x {MU_LEVELS} levels, '
+        f'depths {MU_DEPTHS}, float64 and float32: fields and parcel '
+        f'bit-equal with the plain twin')
+    mu_rows, span_rows = {}, {}
+    for label, B, L, broadcast in NEIGHBOR_SHAPES:
+        dat, ignore = cell_columns(label, dev)
+        up, ut = dat['pressure'], dat['temperature']
+        uargs = (up, ut, thermo.dewpoint_from_specific_humidity(
+            up, ut, dat['specific_humidity']), 250.0)
+        utwin_a, want = cuda_ms(lambda: parcels._most_unstable_twin(*uargs),
+                                3)
+        ukern_a, got = cuda_ms(lambda: parcels.most_unstable_kernel(*uargs),
+                               10)
+        ukern_b, _ = cuda_ms(lambda: parcels.most_unstable_kernel(*uargs),
+                             10)
+        utwin_b, _ = cuda_ms(lambda: parcels._most_unstable_twin(*uargs), 3)
+        same_bits(f'most-unstable/{label}', got, want)
+        ub = bound(*mu_work(up, ut), torch.float32)
+        mu_rows[label] = {
+            'columns': B, 'levels': L, 'broadcast': broadcast,
+            'ms': (ukern_a + ukern_b) / 2, 'plain_ms': (utwin_a + utwin_b) / 2,
+            'bound_ms': ub[0], 'bound_by': ub[1], 'bit_equal': True}
+        log(f'[4 most-unstable {label}] {B} x {L} float32 '
+            f'{"broadcast" if broadcast else "contiguous"} pressure, the '
+            f'cell\'s columns, depth 250: kernel {ukern_a:.3f}/'
+            f'{ukern_b:.3f} ms, plain twin {utwin_a:.3f}/{utwin_b:.3f} ms, '
+            f'bound {ub[0]:.3f} ms by {ub[1]} ({smi}); bit-equal with the '
+            f'twin')
         del got, want
 
         def pipe():
@@ -2038,12 +2235,12 @@ def main():
                                             tables=tab32)
 
         after = span_card_ms(pipe)
-        kernel = parcels.mix_layers_kernel
-        parcels.mix_layers_kernel = parcels._mix_layers_twin
+        kernel = parcels.most_unstable_kernel
+        parcels.most_unstable_kernel = parcels._most_unstable_twin
         try:
             before = span_card_ms(pipe)
         finally:
-            parcels.mix_layers_kernel = kernel
+            parcels.most_unstable_kernel = kernel
         span_rows[label] = {'before': before, 'after': after}
         names = sorted(k for k in set(before) | set(after)
                        if k.startswith('xparcel.prep.'))
@@ -2056,7 +2253,7 @@ def main():
             f'{sum(after.get(k, 0.0) for k in names):.3f}; the call '
             f'{sum(before.values()):.3f} -> {sum(after.values()):.3f} '
             f'({smi})')
-        del dat, margs, mp, mt
+        del dat, uargs, up, ut
     targs = tuple(x.contiguous() for x in (p, t, td, h))
     tplain_a, want = cuda_ms(lambda: diag._diag_body(*targs), 3)
     tkern_a, got = cuda_ms(lambda: diag.diag_kernel(*targs), 10)
@@ -2085,12 +2282,13 @@ def main():
                     (1, 1)),
     }
     outs, launches = {}, {'fused_cape_cin': 0, 'diag_tail': 0,
-                          'mix_layers': 0}
+                          'mix_layers': 0, 'most_unstable': 0}
     for name, (run, want_counts) in paths.items():
         fused.cape_cin_kernel.launches = diag.diag_kernel.launches = 0
         fused.prepass_kernel.launches = 0
         parcels.bridge_neighbors_kernel.launches = 0
         parcels.mix_layers_kernel.launches = 0
+        parcels.most_unstable_kernel.launches = 0
         out = run()
         torch.cuda.synchronize()
         counts = (fused.cape_cin_kernel.launches, diag.diag_kernel.launches)
@@ -2111,7 +2309,14 @@ def main():
                 f'launches')
         launches['fused_cape_cin'] += counts[0]
         launches['diag_tail'] += counts[1]
+        # One most-unstable launch a full fused pipeline call, none for
+        # the reduced one or the surface.
+        if parcels.most_unstable_kernel.launches != (name == 'pipeline'):
+            raise AssertionError(
+                f'{name}: {parcels.most_unstable_kernel.launches} '
+                f'most-unstable launches')
         launches['mix_layers'] += parcels.mix_layers_kernel.launches
+        launches['most_unstable'] += parcels.most_unstable_kernel.launches
         outs[name] = {**out[0], **out[1]} if name == 'surface' else out
     outs['proxies'] = xt.storm_proxies(outs['pipeline'])
     for name, out in outs.items():
@@ -2152,7 +2357,8 @@ def main():
     n_cape = int(torch.isfinite(pipe['mu_cape']).sum())
     log(f'[5 main path] surface, pipeline, reduced pipeline and storm '
         f'proxies at {MAIN_COLUMNS} x {LEVELS} float32: (solve, tail) '
-        f'launches 1+0, 3+1, 1+1; '
+        f'launches 1+0, 3+1, 1+1; mixed-layer 0, 1, 1 and most-unstable '
+        f'0, 1, 0 launches; '
         f'{CHECK_COLUMNS} columns within the float32 budget of the CPU '
         f'plain path; mu_cape finite in {n_cape} columns, mean '
         f'{pipe["mu_cape"].nanmean().item():.2f} J/kg')
@@ -2164,7 +2370,8 @@ def main():
         for name, rate in rates.items()) + f', float32, {smi}')
 
     # 6. The modular path on the card: plain torch, no kernel launched but
-    # the neighbours (mixed_layer's bridge_neighbors).
+    # the neighbours (mixed_layer's bridge_neighbors) and, in the full
+    # pipeline, the most-unstable prep.
     modular = {
         'modular': (lambda: xt.conv_properties(dat, tables=tab32),
                     'pipeline', xt.conv_properties),
@@ -2883,6 +3090,14 @@ def main():
         'launches': launches['mix_layers'],
         **mix_rows['aus400_ml90'],
         'shapes': mix_rows,
+    }, {
+        'name': 'most_unstable',
+        'route': 'cuda',
+        'source': 'xarray_parcel_tpu_torch/csrc/most_unstable.cu',
+        'replaces': None,       # XLA fuses the JAX package's prep
+        'launches': launches['most_unstable'],
+        **mu_rows['aus400_ml90'],
+        'shapes': mu_rows,
         'span_card_ms': span_rows,
     }]}
     log(json.dumps(record))

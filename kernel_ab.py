@@ -9,10 +9,13 @@ each.  An other tree is a directory holding
 ``git archive`` of the parent commit unpacked into ``dist/parent``, or a
 copy of this tree with a kernel's block size changed.
 
-First the mixed layers of both depths (``parcels.mix_layers_kernel``)
-at each device cell's shape, on the cell's own float32 columns
-(``chip_smoke.cell_columns``), held as ``chip_smoke.compare_mix`` holds
-the kernel to its twin, with the plain twin's time beside the trees'.
+First the most-unstable prep (``parcels.most_unstable_kernel``, depth
+250 hPa), held bit for bit (``chip_smoke.same_bits``), and the mixed
+layers of both depths (``parcels.mix_layers_kernel``), held as
+``chip_smoke.compare_mix`` holds the kernel to its twin, each at each
+device cell's shape on the cell's own float32 columns
+(``chip_smoke.cell_columns``), with the plain twin's time beside the
+trees'.
 Then, at 786,432 columns (the ``chip_smoke.synthetic`` soundings, surface
 parcel) of the first width in ``--levels`` (90 by default), for the solve
 in float32 and float64 (also float32 with the profile tracks) and the
@@ -38,8 +41,9 @@ options set calls ``fused_cape_cin_flags_<dtype>``, which takes the flags
 word: a tree from before the options has no such entry point and is left
 out of that case (its line says so), as a tree without the pre-pass
 kernel (``parcel_prepass_<dtype>``), the neighbours kernel
-(``bridge_neighbors_<dtype>``) or the mixed-layer kernel
-(``mix_layers_f32``) is out of their cases.
+(``bridge_neighbors_<dtype>``), the mixed-layer kernel
+(``mix_layers_f32``) or the most-unstable kernel (``most_unstable_f32``)
+is out of their cases.
 """
 
 import argparse
@@ -159,6 +163,25 @@ def mix_cases(dev):
     return cases
 
 
+def mu_cases(dev):
+    """{case: (run(), bound, 'float32', entry point, check, twin())}: the
+    most-unstable prep of the fused pipelines (depth 250 hPa) at each
+    device cell's shape, on the cell's own columns, held bit for bit."""
+    cases = {}
+    for label, B, L, broadcast in chip_smoke.NEIGHBOR_SHAPES:
+        dat, _ = chip_smoke.cell_columns(label, dev)
+        p, t = dat['pressure'], dat['temperature']
+        args = (p, t, thermo.dewpoint_from_specific_humidity(
+            p, t, dat['specific_humidity']), 250.0)
+        cases[f'most-unstable {label} {B} x {L}'
+              f'{" broadcast" if broadcast else ""}'] = (
+            lambda a=args: parcels.most_unstable_kernel(*a),
+            chip_smoke.bound(*chip_smoke.mu_work(p, t), torch.float32),
+            'float32', 'most_unstable_f32', chip_smoke.same_bits,
+            lambda a=args: parcels._most_unstable_twin(*a))
+    return cases
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     ap.add_argument('--other', action='append', default=[],
@@ -192,7 +215,7 @@ def main():
     coeffs = xt.AdiabatTables.build(dev, torch.float64).coeffs
     all_names = list(trees)
     result = {'device': smi, 'columns': chip_smoke.MAIN_COLUMNS, 'cases': {}}
-    groups = [lambda: mix_cases(dev)] + [
+    groups = [lambda: mu_cases(dev), lambda: mix_cases(dev)] + [
         lambda k=k, L=L: cases_at(
             L, (torch.float32, torch.float64) if k == 0 else (torch.float32,),
             coeffs, dev)

@@ -12,7 +12,8 @@ import pytest
 import torch
 
 import chip_smoke
-from xarray_parcel_tpu_torch import AdiabatTables, adiabat, fused, parcels
+from xarray_parcel_tpu_torch import (AdiabatTables, adiabat, fused, parcels,
+                                     thermo)
 from xarray_parcel_tpu_torch import diagnostics as diag
 from xarray_parcel_tpu_torch import pipeline as xt_pipeline
 from xarray_parcel_tpu_torch import xarray_api as xapi
@@ -401,9 +402,167 @@ def test_mix_layers_kernel_long_rows(device):
     mix_held('mix long rows', p, t, td, depths)
 
 
+# --- the most-unstable kernel (parcels.from_most_unstable_parcel) -----------
+
+def mu_held(name, p, t, td, depth):
+    """The kernel's outputs, with one launch counted, held bit for bit to
+    the twin's on the card (chip_smoke.same_bits).  Returns them."""
+    before = parcels.most_unstable_kernel.launches
+    got = parcels.most_unstable_kernel(p, t, td, depth)
+    torch.cuda.synchronize()
+    assert parcels.most_unstable_kernel.launches == before + 1
+    chip_smoke.same_bits(name, got,
+                         parcels._most_unstable_twin(p, t, td, depth))
+    return got
+
+
+@pytest.mark.parametrize('depth', chip_smoke.MU_DEPTHS)
+@pytest.mark.parametrize('L', chip_smoke.MU_LEVELS)
+@pytest.mark.parametrize('dtype', [torch.float64, torch.float32])
+def test_most_unstable_kernel_matches_twin(device, dtype, L, depth):
+    """The kernel bit for bit the twin on chip_smoke.mu_columns' hard rows
+    (NaN-led, interior-NaN and all-NaN columns, no temperature, ties of
+    theta-e and of the layer's bound, a layer of one level, duplicated,
+    unsorted and reversed levels, levels on the bound), a contiguous
+    pressure; 1,003 rows, not a multiple of a block's tile."""
+    p, t, td = chip_smoke.mu_columns(1003, L, seed=L, dtype=dtype,
+                                     device=device)
+    mu_held(f'most-unstable L={L} depth={depth}', p, t, td, depth)
+
+
+@pytest.mark.parametrize('layout', ['broadcast_1d', 'broadcast_rows',
+                                    'transposed', 'grid'])
+@pytest.mark.parametrize('dtype', [torch.float64, torch.float32])
+def test_most_unstable_kernel_layouts(device, dtype, layout):
+    """A stride-0 pressure (ERA5's 1-D levels, and their (B, L) broadcast)
+    read in place under temperature and dewpoint NaN below each column's
+    ground; a column-major pressure, copied; a (ny, nx, L) batch: each bit
+    for bit the twin, every output in the full shape."""
+    p, t, td = chip_smoke.mu_columns(777, 35, seed=4, dtype=dtype,
+                                     device=device)
+    if layout.startswith('broadcast'):
+        p = torch.tensor(ERA5_LEVELS, dtype=dtype, device=device)
+        ground = torch.arange(777, device=device) % 6
+        below = torch.arange(35, device=device) < ground[:, None]
+        t, td = (x.masked_fill(below, torch.nan) for x in (t, td))
+        if layout == 'broadcast_rows':
+            p = p.expand(t.shape)
+    elif layout == 'transposed':
+        p = p.t().contiguous().t()
+    else:
+        p, t, td = (x.reshape(21, 37, 35) for x in (p, t, td))
+    got = mu_held(f'most-unstable {layout}', p, t, td, 250.0)
+    assert all(g.shape == t.shape for g in got[:3])
+    assert all(g.shape == t.shape[:-1] for g in got[3:])
+
+
+@pytest.mark.parametrize('dtype', [torch.float64, torch.float32])
+def test_most_unstable_kernel_ties(device, dtype):
+    """The kernel's tie rules on the card: of two levels whose theta-e
+    (thermo's, on the card) is equal the first is the parcel; of two
+    levels equally far from the layer's bound the larger pressure bounds
+    the layer, leaving the most unstable level, below it, out."""
+    p, t, td = chip_smoke.mu_columns(320, 35, seed=5, dtype=dtype,
+                                     device=device)
+    kind = torch.arange(320, device=device) % chip_smoke.MU_KINDS
+    e = thermo.equivalent_potential_temperature(p[:, :2], t[:, :2],
+                                                td[:, :2])
+    tie = (kind == 13) & (e[:, 0] == e[:, 1])
+    assert int(tie.sum()) >= 16 and (t[tie, 0] != t[tie, 1]).all()
+    got = mu_held('most-unstable ties', p, t, td, 250.0)
+    assert torch.equal(got[4][tie], t[tie, 0])
+    for k, depth in zip((7, 8), chip_smoke.MU_DEPTHS):
+        rows = kind == k
+        got = mu_held(f'most-unstable bound ties {depth}', p, t, td, depth)
+        hot = p[rows] == (p[rows, :1] - depth - 2.0)
+        assert (hot.sum(-1) == 1).all()
+        assert (got[3][rows] > p[rows][hot]).all()
+
+
+@pytest.mark.parametrize('L', [6_000, 12_000])
+def test_most_unstable_kernel_long_rows(device, L):
+    """Rows too long for a tile of several: a row a block, its levels over
+    the 32 lanes of a warp, in opt-in shared memory (6,000 float64
+    levels) or, too long for it (12,000, as the solve's any-width test
+    makes them), read in place."""
+    p, t, td = chip_smoke.mu_columns(9, L, seed=2, device=device)
+    for depth in chip_smoke.MU_DEPTHS:
+        mu_held('most-unstable long rows', p, t, td, depth)
+
+
+@pytest.mark.parametrize('case', chip_smoke.MU_INPUTS)
+def test_from_most_unstable_parcel_takes_what_the_plain_ops_take(device,
+                                                                  case):
+    """Inputs of chip_smoke.mu_inputs, which the plain ops take and the
+    kernel does not: one launch, each output in its input's dtype and in
+    the full shape, bit for bit the twin's on the card on the inputs made
+    what the kernel takes (parcels._card_inputs), its outputs cast back."""
+    p, t, td, depth = chip_smoke.mu_inputs(case, device)
+    before = parcels.most_unstable_kernel.launches
+    fields, parcel = parcels.from_most_unstable_parcel(p, t, td, depth)
+    assert parcels.most_unstable_kernel.launches == before + 1
+    got = (*fields.values(), *parcel.values())
+    want = parcels._most_unstable_twin(*parcels._card_inputs(p, t, td,
+                                                             depth))
+    dtypes = [x.dtype for x in (p, t, td)] * 2
+    assert [o.dtype for o in got] == dtypes
+    assert [o.shape for o in got] == [(40, 35)] * 3 + [(40,)] * 3
+    chip_smoke.same_bits(f'most-unstable {case}', got,
+                         [w.to(d) for w, d in zip(want, dtypes)])
+
+
+def test_column_kernels_refuse_no_levels(device):
+    """Columns of no levels: the mixed-layer and most-unstable kernels
+    raise ValueError, launching nothing, where the twins raise too, rather
+    than return an unwritten parcel."""
+    p = torch.empty(3, 0, device=device)
+    for kernel, extra in ((parcels.most_unstable_kernel, 250.0),
+                          (parcels.mix_layers_kernel, (100.0,))):
+        before = kernel.launches
+        with pytest.raises(ValueError, match='one level'):
+            kernel(p, p, p, extra)
+        assert kernel.launches == before
+
+
+@pytest.mark.parametrize('columns', ['synthetic', 'era5_style'])
+def test_pipeline_bit_equal_with_the_most_unstable_twin(device, coeffs,
+                                                        columns, monkeypatch):
+    """conv_properties_fused on the card, one most-unstable launch a call
+    (none for the reduced pipeline, one for the modular one), and with the
+    kernel's twin in its place: every output bit for bit, NaN where
+    NaN."""
+    tables = AdiabatTables(coeffs.to(torch.float32))
+    if columns == 'synthetic':
+        dat_np, _ = chip_smoke.synthetic(4099, L=90, seed=5)
+        dat = {k: torch.as_tensor(np.ascontiguousarray(v))
+               for k, v in dat_np.items()}
+    else:
+        dat = era5_style(4099)
+    dat = {k: v.to(device) for k, v in dat.items()}
+    kw = dict(tables=tables, ignore_nans=columns == 'era5_style')
+    before = parcels.most_unstable_kernel.launches
+    got = xt_pipeline.conv_properties_fused(dat, **kw)
+    assert parcels.most_unstable_kernel.launches == before + 1
+    xt_pipeline.min_conv_properties_fused(dat, tables=tables)
+    assert parcels.most_unstable_kernel.launches == before + 1
+    xt_pipeline.conv_properties(dat, tables=tables)
+    assert parcels.most_unstable_kernel.launches == before + 2
+    monkeypatch.setattr(parcels, 'most_unstable_kernel',
+                        parcels._most_unstable_twin)
+    want = xt_pipeline.conv_properties_fused(dat, **kw)
+    assert set(got) == set(want)
+    for k in want:
+        if want[k].dtype == torch.bool:
+            assert torch.equal(got[k], want[k]), k
+        else:
+            chip_smoke.same_bits(k, (got[k],), (want[k],))
+    assert torch.isfinite(got['mu_cape']).any()
+
+
 # --- every kernel through the seam (_kernels) --------------------------------
 
-KERNELS = ['solve', 'prepass', 'tail', 'neighbors', 'mix']
+KERNELS = ['solve', 'prepass', 'tail', 'neighbors', 'mix',
+           'most_unstable']
 
 
 def card_case(name, device, coeffs, n=40, L=30):
@@ -440,9 +599,14 @@ def card_case(name, device, coeffs, n=40, L=30):
         args = chip_smoke.neighbor_columns(n, L, device=device)
         return parcels.bridge_neighbors_kernel, args, lambda k: (
             parcels.bridge_neighbors(*first(k, args))[0], (k, L))
-    args = (*chip_smoke.mix_columns(n, L, device=device), (100.0, 50.0))
-    return parcels.mix_layers_kernel, args, lambda k: (
-        parcels.mix_layers(*first(k, args))[0][0]['pressure'], (k, L))
+    if name == 'mix':
+        args = (*chip_smoke.mix_columns(n, L, device=device), (100.0, 50.0))
+        return parcels.mix_layers_kernel, args, lambda k: (
+            parcels.mix_layers(*first(k, args))[0][0]['pressure'], (k, L))
+    args = (*chip_smoke.mu_columns(n, L, device=device), 250.0)
+    return parcels.most_unstable_kernel, args, lambda k: (
+        parcels.from_most_unstable_parcel(*first(k, args))[1]['pressure'],
+        (k,))
 
 
 def outputs(out):
@@ -504,13 +668,19 @@ def rejected(name, args):
         own = [(swap(1, valid.to(torch.uint8)), TypeError),
                (swap(1, valid[:, :-1]), ValueError),
                (swap(1, valid[0]), ValueError)]
-    else:
+    elif name == 'mix':
         p, t, td, depths = args
         own = [(swap(0, p.float()), TypeError),
                (swap(0, p[:, :-1]), ValueError),
                (swap(2, td[:-1]), ValueError),
                (swap(3, ()), ValueError),
                (swap(3, (150.0, 100.0, 50.0)), ValueError)]
+    else:
+        p, t, td, depth = args
+        own = [(swap(0, p.float()), TypeError),
+               (swap(0, p[:, :-1]), ValueError),
+               (swap(2, td[:-1]), ValueError),
+               (swap(1, t[0]), ValueError)]
     return common + own
 
 
@@ -626,8 +796,38 @@ def mix_gradient(device, coeffs):
             lambda: grad(parcels._mix_layers_twin), check)
 
 
+def most_unstable_gradient(device, coeffs):
+    """Through the most-unstable kernel with a 1-D pressure that
+    requires grad: outputs in the full shape, and every input's gradient
+    (the twin's VJP on the card) equal to the twin's own autograd there,
+    the pressure's in its (L,) shape, up to the order of the broadcast
+    pressure's summed gradient."""
+    p, t, td = (x[::chip_smoke.MU_KINDS] for x in chip_smoke.mu_columns(
+        4800, 35, seed=9, device=device))
+
+    def grad(fn):
+        xs = [p[0].clone().requires_grad_(), t.clone().requires_grad_(),
+              td.clone().requires_grad_()]
+        outs = fn(*xs, 250.0)
+        assert all(o.shape == t.shape for o in outs[:3])
+        loss = sum((torch.where(torch.isfinite(o), o, 0.0) * (k + 1)).sum()
+                   for k, o in enumerate(outs))
+        return torch.autograd.grad(loss, xs, allow_unused=True)
+
+    def check(got, want):
+        assert got[0].shape == p[0].shape and got[0].abs().sum() > 0
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, rtol=1e-12, atol=1e-12,
+                                       equal_nan=True)
+
+    return ((parcels.most_unstable_kernel,),
+            lambda: grad(parcels.most_unstable_kernel),
+            lambda: grad(parcels._most_unstable_twin), check)
+
+
 GRADIENTS = {'solve': solve_gradient, 'tail': tail_gradient,
-             'neighbors': neighbors_gradient, 'mix': mix_gradient}
+             'neighbors': neighbors_gradient, 'mix': mix_gradient,
+             'most_unstable': most_unstable_gradient}
 
 
 @pytest.mark.parametrize('name', list(GRADIENTS))

@@ -465,6 +465,6 @@ def test_fused_pipeline_runs_both_functions(tables):
     finally:
         _kernels.KernelCall.forward = staticmethod(forward)
     assert seen == {'pre-pass', 'CAPE/CIN', 'diagnostics-tail',
-                    'mixed-layer'}
+                    'mixed-layer', 'most-unstable'}
     scalar_loss(out).backward()
     assert torch.isfinite(x['temperature'].grad).all()

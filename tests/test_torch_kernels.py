@@ -1,5 +1,5 @@
 """The seam every hand-written kernel is called through (``_kernels``), on
-the CPU, once for each of the five kernels.
+the CPU, once for each of the six kernels.
 
 A CPU tensor runs the kernel's plain twin and counts no launch; the meta
 device, which has no kernel, raises; an input the kernel declares
@@ -55,12 +55,17 @@ def mix_args(tables, dtype):
             (100.0, 50.0))
 
 
+def mu_args(tables, dtype):
+    return (*chip_smoke.mu_columns(32, 20, seed=6, dtype=dtype), 250.0)
+
+
 KERNELS = {
     'solve': (tfused.cape_cin_kernel, solve_args),
     'prepass': (tfused.prepass_kernel, prepass_args),
     'tail': (tdiag.diag_kernel, tail_args),
     'neighbors': (tparcels.bridge_neighbors_kernel, neighbors_args),
     'mix': (tparcels.mix_layers_kernel, mix_args),
+    'most_unstable': (tparcels.most_unstable_kernel, mu_args),
 }
 
 

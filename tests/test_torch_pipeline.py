@@ -25,7 +25,7 @@ from xarray_parcel_tpu import adiabat as jad
 from xarray_parcel_tpu import diagnostics as jdiag
 from xarray_parcel_tpu import parcels as jparcels
 from xarray_parcel_tpu import pipeline as jpipeline
-from xarray_parcel_tpu_torch import AdiabatTables
+from xarray_parcel_tpu_torch import AdiabatTables, thermo
 from xarray_parcel_tpu_torch import diagnostics as tdiag
 from xarray_parcel_tpu_torch import parcels as tparcels
 from xarray_parcel_tpu_torch import pipeline as tpipeline
@@ -352,6 +352,156 @@ def test_mix_layers_gradient_with_1d_pressure(dtype):
     assert outs[0].grad_fn.kernel is tparcels.mix_layers_kernel
     assert all(o.shape == t.shape for o in outs[0::6])
     twin_outs, want = grads(tparcels._mix_layers_twin)
+    chip_smoke.same_bits('outputs', [o.detach() for o in outs],
+                         [o.detach() for o in twin_outs])
+    assert got[0].shape == p[0].shape
+    assert got[0].abs().sum() > 0
+    chip_smoke.same_bits('gradients', got, want)
+
+
+def composed_most_unstable(p, t, td, depth):
+    """``from_most_unstable_parcel`` as the pipelines composed it before
+    the kernel: ``most_unstable_parcel``, then every level below the
+    parcel NaN."""
+    parcel = tparcels.most_unstable_parcel(p, t, td, depth=depth)
+    keep = p <= parcel['pressure'][..., None]
+    return (torch.where(keep, p, torch.nan), torch.where(keep, t, torch.nan),
+            torch.where(keep, td, torch.nan), *parcel.values())
+
+
+@pytest.mark.parametrize('layout', ['rows', 'broadcast', 'grid', '1-D'])
+@pytest.mark.parametrize('depth', chip_smoke.MU_DEPTHS)
+@pytest.mark.parametrize('dtype', [torch.float64, torch.float32])
+def test_from_most_unstable_parcel_is_the_composition_on_the_cpu(
+        dtype, depth, layout):
+    """On CPU tensors ``from_most_unstable_parcel`` launches nothing and
+    equals, bit for bit, ``most_unstable_parcel`` with the levels below
+    the parcel masked, as the pipelines composed it before the kernel: on
+    the hard rows of chip_smoke.mu_columns, with 1-D levels broadcast to
+    the rows, on a (ny, nx, L) batch, and with the 1-D levels themselves,
+    where every field takes the full shape."""
+    p, t, td = chip_smoke.mu_columns(64, 24, seed=3, dtype=dtype)
+    if layout == 'broadcast':
+        p = p[0].expand_as(t)
+    elif layout == '1-D':
+        p = p[0]
+    elif layout == 'grid':
+        p, t, td = (x.reshape(4, 16, 24) for x in (p, t, td))
+    before = tparcels.most_unstable_kernel.launches
+    fields, parcel = tparcels.from_most_unstable_parcel(p, t, td, depth)
+    assert tparcels.most_unstable_kernel.launches == before
+    assert list(fields) == list(parcel) == ['pressure', 'temperature',
+                                            'dewpoint']
+    assert all(v.shape == t.shape for v in fields.values())
+    assert all(v.shape == t.shape[:-1] for v in parcel.values())
+    got = (*fields.values(), *parcel.values())
+    chip_smoke.same_bits(f'{layout} {depth}', got,
+                         composed_most_unstable(p, t, td, depth))
+    chip_smoke.same_bits(f'{layout} {depth} twin', got,
+                         tparcels._most_unstable_twin(p, t, td, depth))
+
+
+@pytest.mark.parametrize('dtype', [torch.float64, torch.float32])
+def test_most_unstable_ties(dtype):
+    """The twin's two tie rules on chip_smoke.mu_columns' tie rows: of two
+    levels of one theta-e the first is the parcel, and of two levels
+    equally far from the layer's bound the larger pressure bounds the
+    layer (the smaller, the most unstable level, stays out)."""
+    p, t, td = chip_smoke.mu_columns(160, 35, seed=5, dtype=dtype)
+    kind = torch.arange(160) % chip_smoke.MU_KINDS
+    tie = kind == 13
+    e = thermo.equivalent_potential_temperature(p[:, :2], t[:, :2],
+                                                td[:, :2])
+    tie &= e[:, 0] == e[:, 1]
+    assert int(tie.sum()) >= 8
+    assert (t[tie, 0] != t[tie, 1]).all()
+    out = tparcels._most_unstable_twin(p, t, td, 250.0)
+    assert torch.equal(out[4][tie], t[tie, 0])
+    for k, depth in zip((7, 8), chip_smoke.MU_DEPTHS):
+        rows = torch.nonzero(kind == k)[:, 0]
+        out = tparcels._most_unstable_twin(p, t, td, depth)
+        bound = p[rows, 0] - depth
+        hot = torch.argmax((p[rows] == (bound - 2.0)[:, None]).to(
+            torch.uint8), -1)
+        assert (p[rows, hot] == bound - 2.0).all()
+        assert (out[3][rows] != p[rows, hot]).all()
+        keep = tparcels.most_unstable_parcel(p[rows], t[rows], td[rows],
+                                             depth=depth)
+        assert torch.equal(keep['pressure'], out[3][rows])
+
+
+def test_most_unstable_cape_cin_goes_through_the_kernel(monkeypatch):
+    """The modular ``most_unstable_cape_cin`` makes its prep as
+    ``from_most_unstable_parcel`` does, through the seam: one kernel call,
+    and its parcel is that call's."""
+    p, t, td = chip_smoke.mu_columns(32, 20, seed=2)
+    calls = []
+
+    def counted(*args):
+        calls.append(args)
+        return kernel(*args)
+
+    kernel = tparcels.most_unstable_kernel
+    monkeypatch.setattr(tparcels, 'most_unstable_kernel', counted)
+    _, _, parcel = tparcels.most_unstable_cape_cin(p, t, td, depth=250.0)
+    assert len(calls) == 1
+    chip_smoke.same_bits('modular', tuple(parcel.values()),
+                         tparcels._most_unstable_twin(p, t, td, 250.0)[3:])
+
+
+@pytest.mark.parametrize('case', chip_smoke.MU_INPUTS[:-1])
+def test_card_inputs_keep_the_twin_s_values(case):
+    """``from_most_unstable_parcel``'s CUDA branch, with the twin in the
+    kernel's place: inputs made what the kernel takes
+    (``parcels._card_inputs``), outputs cast back to their inputs' dtypes,
+    give each output of the twin on the inputs as they were, bit for bit,
+    in its dtype and shape (half floats, whose theta-e the kernel makes in
+    float32, only on the card)."""
+    p, t, td, depth = chip_smoke.mu_inputs(case)
+    want = tparcels._most_unstable_twin(p, t, td, depth)
+    args = tparcels._card_inputs(p, t, td, depth)
+    assert len({x.dtype for x in args[:3]}) == 1
+    assert args[1].shape == args[2].shape == want[0].shape
+    got = tparcels.most_unstable_kernel(*args)
+    got = [o.to(w.dtype) for o, w in zip(got, want)]
+    assert [o.shape for o in got] == [w.shape for w in want]
+    chip_smoke.same_bits(case, got, want)
+
+
+def test_column_kernels_take_one_level_or_more():
+    """The card's column kernels refuse columns of no levels, where the
+    twins raise too, rather than return an unwritten parcel."""
+    p = torch.empty(3, 0)
+    with pytest.raises(ValueError, match='one level'):
+        tparcels._check_columns(p, p, p)
+    for twin, extra in ((tparcels._most_unstable_twin, 250.0),
+                        (tparcels._mix_layers_twin, (100.0,))):
+        with pytest.raises(IndexError):
+            twin(p, p, p, extra)
+
+
+@pytest.mark.parametrize('dtype', [torch.float64, torch.float32])
+def test_most_unstable_gradient_with_1d_pressure(dtype):
+    """A 1-D pressure that requires grad: ``from_most_unstable_parcel``
+    takes the seam's Function on the CPU and gives every input the
+    gradient of the twin's own autograd, bit for bit, the pressure's in its
+    own (L,) shape.  On chip_smoke.mu_columns' plain soundings, under the
+    first one's levels."""
+    p, t, td = (x[::chip_smoke.MU_KINDS] for x in chip_smoke.mu_columns(
+        160, 24, seed=8, dtype=dtype))
+
+    def grads(fn):
+        xs = [p[0].clone().requires_grad_(), t.clone().requires_grad_(),
+              td.clone().requires_grad_()]
+        outs = fn(*xs, 250.0)
+        loss = sum((torch.where(torch.isfinite(o), o, 0.0) * (k + 1)).sum()
+                   for k, o in enumerate(outs))
+        return outs, torch.autograd.grad(loss, xs, allow_unused=True)
+
+    outs, got = grads(tparcels.most_unstable_kernel)
+    assert outs[0].grad_fn.kernel is tparcels.most_unstable_kernel
+    assert all(o.shape == t.shape for o in outs[:3])
+    twin_outs, want = grads(tparcels._most_unstable_twin)
     chip_smoke.same_bits('outputs', [o.detach() for o in outs],
                          [o.detach() for o in twin_outs])
     assert got[0].shape == p[0].shape

@@ -10,11 +10,14 @@ the modular ones (``conv_properties``, ``min_conv_properties``), the storm
 proxies and SHIP, the fused CAPE/CIN solve, and the modular path under the
 latter: parcel profiles, ``cape_cin`` and its surface, most-unstable and
 mixed-layer variants, ``moist_lapse`` and the exact wet bulb.  On the GPU
-the fused paths' per-column CAPE/CIN solve, its pre-pass and the
-diagnostics tail, and every path's mixed-layer neighbour scans, run in
-hand-written CUDA kernels (``csrc/fused_cape.cu``, ``csrc/prepass.cu``,
-``csrc/diag_tail.cu``, ``csrc/neighbors.cu``, built at first use by
-``_build.py``), on the CPU in their plain torch twins; every output is
+the fused paths' per-column CAPE/CIN solve, its pre-pass, the
+diagnostics tail and their mixed-layer prep, every path's most-unstable
+prep, and every other path's mixed-layer neighbour scans, run in
+hand-written CUDA kernels
+(``csrc/fused_cape.cu``, ``csrc/prepass.cu``, ``csrc/diag_tail.cu``,
+``csrc/mix_layer.cu``, ``csrc/most_unstable.cu``, ``csrc/neighbors.cu``,
+built at first use by ``_build.py``), on the CPU in their plain torch
+twins; every output is
 differentiable, the kernels' gradient being their twins' VJP.  The modular
 path is otherwise plain torch on either device.
 ``adiabat`` builds its own moist-adiabat tables; ``parallel`` chunks and

@@ -2,7 +2,9 @@
 // transcendentals, NaN and infinity, the NaN-keeping sign, and, for the two
 // that solve a column with one warp, its lanes striding over the levels
 // (fused_cape.cu, diag_tail.cu), the warp reductions and the duplicate-aware
-// interpolation anchors of ops/interp.py.
+// interpolation anchors of ops/interp.py, and, for the three that stage a
+// tile of rows in shared memory (neighbors.cu, mix_layer.cu,
+// most_unstable.cu), the tile's walk, a group's max and the launch.
 //
 // The helpers sit in an anonymous namespace, so every kernel file that
 // includes them keeps its own internal copies.  _build.py hashes this file
@@ -252,5 +254,80 @@ template <typename T> struct Anchors {
     return interp_sums(sb[v], nb[v], sa[v], na[v], frac);
   }
 };
+
+// --- tiles of rows (neighbors.cu, mix_layer.cu, most_unstable.cu) ----------
+// A block owns a tile of consecutive rows of L levels, staged in shared
+// memory at an odd pitch (L | 1), so that threads on different rows fall
+// on distinct banks, with coalesced loads, and written back with coalesced
+// stores.
+
+// The block's walk over the n = rows x L levels of its tile, level e being
+// row e / L, level e % L: each of the kBlock threads steps by kBlock
+// levels from its own, carrying (row, level) without a divide, and calls
+// f(e, row, level).
+template <int kBlock, int kUnroll, typename F>
+__device__ __forceinline__ void tile_walk(int n, int L, F&& f) {
+  const int step_r = kBlock / L, step_c = kBlock - step_r * L;
+  int r = threadIdx.x / L, c = threadIdx.x - r * L;
+#pragma unroll (kUnroll)
+  for (int e = threadIdx.x; e < n; e += kBlock) {
+    f(e, r, c);
+    r += step_r;
+    c += step_c;
+    if (c >= L) {
+      c -= L;
+      ++r;
+    }
+  }
+}
+
+// The largest v of a group of G consecutive lanes (G a power of two up to
+// a warp), on every lane of it.  None is given a NaN.
+template <typename T> __device__ __forceinline__ T group_max(T v, int G) {
+  for (int m = G / 2; m > 0; m >>= 1) {
+    const T o = __shfl_xor_sync(kFullMask, v, m, G);
+    if (o > v) v = o;
+  }
+  return v;
+}
+
+// Rows a tile, where a tile of R rows takes base + R * per_row shared
+// bytes: as many as fit `budget`, up to `most`, at least one (a longer
+// row takes a block alone).
+inline int64_t fit_rows(int64_t base, int64_t per_row, int64_t budget,
+                        int64_t most) {
+  int64_t rows = (budget - base) / per_row;
+  if (rows > most) rows = most;
+  return rows < 1 ? 1 : rows;
+}
+
+// The shared memory a block may opt in to on the current card, in bytes;
+// 0 where the query fails.
+inline int64_t smem_optin() {
+  int dev, bytes;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess)
+    return 0;
+  return bytes;
+}
+
+// Launch `kernel` on `stream`, `blocks` blocks of kBlock threads with
+// `bytes` of dynamic shared memory each, opting in past 48 KiB.  Returns
+// the CUDA error (0 on success), cudaErrorInvalidValue past the card's
+// opt-in limit.
+template <int kBlock, typename... P, typename... A>
+int launch_tiles(void (*kernel)(P...), int64_t blocks, int64_t bytes,
+                 void* stream, A... args) {
+  if (bytes > smem_optin()) return (int)cudaErrorInvalidValue;
+  if (bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kernel<<<(unsigned)blocks, kBlock, (size_t)bytes, (cudaStream_t)stream>>>(
+      args...);
+  return (int)cudaGetLastError();
+}
 
 }  // namespace

@@ -115,29 +115,17 @@ __global__ void __launch_bounds__(kThreads)
   const T inf = Num<T>::inf(), nan = Num<T>::nan();
   const T* tt = t + row0 * L;
   const T* dt = td + row0 * L;
-  // Level e of the tile is row e / L, level e % L; each thread steps by
-  // kThreads levels, carried as (row, level) without a divide.
-  const int step_r = kThreads / L, step_c = kThreads - step_r * L;
-  const int r0 = threadIdx.x / L, c0 = threadIdx.x - r0 * L;
 
   if (shared_rows)
     for (int c = threadIdx.x; c < L; c += kThreads) pr[c] = p[c];
-  int r = r0, c = c0;
-#pragma unroll 4
-  for (int e = threadIdx.x; e < n; e += kThreads) {
+  tile_walk<kThreads, 4>(n, L, [&](int e, int r, int c) {
     const T x = p[(row0 + r) * row_stride + c];
     const T tv = tt[e], dv = dt[e];
     ts[r * pitch + c] = tv;
     ds[r * pitch + c] = dv;
     ok[r * pitch + c] = !isnan_(x) && !isnan_(tv) && !isnan_(dv);
     if (!shared_rows) pr[r * pitch + c] = x;
-    r += step_r;
-    c += step_c;
-    if (c >= L) {
-      c -= L;
-      ++r;
-    }
-  }
+  });
   __syncthreads();
 
   // Each row's G threads (consecutive lanes of a warp) take a contiguous
@@ -179,11 +167,7 @@ __global__ void __launch_bounds__(kThreads)
     if (g >= j && a < prev) prev = a;
     if (g + j < G && b > later) later = b;
   }
-  for (int m = G / 2; m > 0; m >>= 1) {
-    const T o = __shfl_xor_sync(kFullMask, pmax, m, G);
-    if (o > pmax) pmax = o;
-  }
-  const T bottom = or_nan(pmax, -inf);
+  const T bottom = or_nan(group_max(pmax, G), -inf);
   const T safe_bottom = isnan_(bottom) ? T(0) : bottom;
 
   T top[D], at[D];
@@ -379,10 +363,7 @@ __global__ void __launch_bounds__(kThreads)
 
   const int64_t BL = B * (int64_t)L;
   T* out = fields + row0 * L;
-  r = r0;
-  c = c0;
-#pragma unroll 2
-  for (int e = threadIdx.x; e < n; e += kThreads) {
+  tile_walk<kThreads, 2>(n, L, [&](int e, int r, int c) {
     const T x = shared_rows ? pr[c] : pr[r * pitch + c];
     const T tv = ts[r * pitch + c], dv = ds[r * pitch + c];
 #pragma unroll
@@ -399,53 +380,29 @@ __global__ void __launch_bounds__(kThreads)
         o[2 * BL] = keep ? dv : nan;
       }
     }
-    r += step_r;
-    c += step_c;
-    if (c >= L) {
-      c -= L;
-      ++r;
-    }
-  }
+  });
 }
 
 template <typename T, int D>
 int launch_depths(const void* p, const void* t, const void* td, void* fields,
                   void* parcel, int64_t B, int L, int row_stride,
                   const Depths<T>& depth, void* stream) {
-  int dev, smem_max;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&smem_max,
-                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return (int)err;
   const bool shared_rows = row_stride == 0;
-  const int64_t per_row = tile_bytes<T>(1, L, shared_rows, D) -
-                          tile_bytes<T>(0, L, shared_rows, D);
-  int64_t tile_rows =
-      (kTileBytes - tile_bytes<T>(0, L, shared_rows, D)) / per_row;
-  if (tile_rows > kThreads) tile_rows = kThreads;
-  if (tile_rows < 1) tile_rows = 1;
+  const int64_t base = tile_bytes<T>(0, L, shared_rows, D);
+  const int64_t tile_rows =
+      fit_rows(base, tile_bytes<T>(1, L, shared_rows, D) - base, kTileBytes,
+               kThreads);
   // Threads a row: the most a power of two that the block's threads cover,
   // up to a warp, while a segment keeps kMinSegment levels.
   int group = 1;
   while (2 * group * tile_rows <= kThreads && 2 * group <= 32 &&
          L >= 2 * group * kMinSegment)
     group *= 2;
-  const int64_t bytes = tile_bytes<T>(tile_rows, L, shared_rows, D);
-  if (bytes > smem_max) return (int)cudaErrorInvalidValue;
-  auto kernel = mix_layers_kernel<T, D>;
-  if (bytes > 48 * 1024) {
-    err = cudaFuncSetAttribute(kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)bytes);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const int64_t blocks = (B + tile_rows - 1) / tile_rows;
-  kernel<<<(unsigned)blocks, kThreads, (size_t)bytes,
-           (cudaStream_t)stream>>>(
-      (const T*)p, (const T*)t, (const T*)td, (T*)fields, (T*)parcel, B, L,
-      row_stride, (int)tile_rows, group, depth);
-  return (int)cudaGetLastError();
+  return launch_tiles<kThreads>(
+      mix_layers_kernel<T, D>, (B + tile_rows - 1) / tile_rows,
+      tile_bytes<T>(tile_rows, L, shared_rows, D), stream, (const T*)p,
+      (const T*)t, (const T*)td, (T*)fields, (T*)parcel, B, L, row_stride,
+      (int)tile_rows, group, depth);
 }
 
 template <typename T>

@@ -70,26 +70,14 @@ __global__ void __launch_bounds__(kThreads)
   const int rows = (int)(B - row0 < tile_rows ? B - row0 : tile_rows);
   const int n = rows * L;
   const T inf = Num<T>::inf();
-  // Level e of the tile is row e / L, level e % L; each thread steps by
-  // kThreads levels, carried as (row, level) without a divide.
-  const int step_r = kThreads / L, step_c = kThreads - step_r * L;
-  const int r0 = threadIdx.x / L, c0 = threadIdx.x - r0 * L;
 
   const unsigned char* vt = valid + row0 * L;
-  int r = r0, c = c0;
-#pragma unroll 4
-  for (int e = threadIdx.x; e < n; e += kThreads) {
+  tile_walk<kThreads, 4>(n, L, [&](int e, int r, int c) {
     const T x = p[(row0 + r) * row_stride + c];
     const bool ok = vt[e] != 0;
     lo[r * pitch + c] = ok ? x : inf;
     hi[r * pitch + c] = ok ? x : -inf;
-    r += step_r;
-    c += step_c;
-    if (c >= L) {
-      c -= L;
-      ++r;
-    }
-  }
+  });
   __syncthreads();
 
   if (threadIdx.x < rows) {
@@ -112,49 +100,21 @@ __global__ void __launch_bounds__(kThreads)
 
   T* pt = prev + row0 * L;
   T* nt = next + row0 * L;
-  r = r0;
-  c = c0;
-#pragma unroll 4
-  for (int e = threadIdx.x; e < n; e += kThreads) {
+  tile_walk<kThreads, 4>(n, L, [&](int e, int r, int c) {
     pt[e] = lo[r * pitch + c];
     nt[e] = hi[r * pitch + c];
-    r += step_r;
-    c += step_c;
-    if (c >= L) {
-      c -= L;
-      ++r;
-    }
-  }
+  });
 }
 
 template <typename T>
 int launch(const void* p, const void* valid, void* prev, void* next,
            int64_t B, int L, int row_stride, void* stream) {
-  int dev, smem_max;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&smem_max,
-                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return (int)err;
   const int64_t row_bytes = 2 * (int64_t)(L | 1) * (int64_t)sizeof(T);
-  int64_t tile_rows = kTileBytes / row_bytes;
-  if (tile_rows > kThreads) tile_rows = kThreads;
-  if (tile_rows < 1) tile_rows = 1;
-  const int64_t bytes = tile_rows * row_bytes;
-  if (bytes > smem_max) return (int)cudaErrorInvalidValue;
-  auto kernel = bridge_neighbors_kernel<T>;
-  if (bytes > 48 * 1024) {
-    err = cudaFuncSetAttribute(kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)bytes);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const int64_t blocks = (B + tile_rows - 1) / tile_rows;
-  kernel<<<(unsigned)blocks, kThreads, (size_t)bytes,
-           (cudaStream_t)stream>>>(
-      (const T*)p, (const unsigned char*)valid, (T*)prev, (T*)next, B, L,
-      row_stride, (int)tile_rows);
-  return (int)cudaGetLastError();
+  const int64_t tile_rows = fit_rows(0, row_bytes, kTileBytes, kThreads);
+  return launch_tiles<kThreads>(
+      bridge_neighbors_kernel<T>, (B + tile_rows - 1) / tile_rows,
+      tile_rows * row_bytes, stream, (const T*)p, (const unsigned char*)valid,
+      (T*)prev, (T*)next, B, L, row_stride, (int)tile_rows);
 }
 
 }  // namespace

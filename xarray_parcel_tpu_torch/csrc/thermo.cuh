@@ -1,5 +1,5 @@
 // Point thermodynamics shared by the kernels (fused_cape.cu, prepass.cu,
-// diag_tail.cu, mix_layer.cu):
+// diag_tail.cu, mix_layer.cu, most_unstable.cu):
 // constants.py's values and thermo.py's functions, op for op as the plain
 // twins' torch ops (tests/test_torch_adiabat.py holds the constants).
 
@@ -51,6 +51,12 @@ template <typename T> __device__ __forceinline__ T div_c(T x, double c) {
   return x * (T(1) / T(c));
 }
 
+// c / x for a constant c, as the card's torch divides a Python number by a
+// tensor: the tensor's reciprocal times the number (Tensor.__rtruediv__).
+template <typename T> __device__ __forceinline__ T rdiv_c(double c, T x) {
+  return (T(1) / x) * T(c);
+}
+
 // Dewpoint from the vapour pressure e.
 template <typename T> __device__ __forceinline__ T dewpoint(T e) {
   const T val = dlog(div_c(e, kSatPressure0c));
@@ -69,6 +75,24 @@ template <typename T> __device__ __forceinline__ T exner_function(T p) {
 template <typename T>
 __device__ __forceinline__ T potential_temperature(T p, T t) {
   return t / exner_function(p);
+}
+
+// Bolton (1980) theta-e, op for op as thermo.equivalent_potential_temperature
+// runs on the card: a power by a Python number raises to it in the working
+// type (torch's tensor-scalar pow), a power by a tensor raises elementwise
+// (tensor-tensor pow); both are pow() of the working type.
+template <typename T>
+__device__ __forceinline__ T equivalent_potential_temperature(T p, T t,
+                                                              T td) {
+  const T e = saturation_vapor_pressure(td);
+  const T r = T(kEpsilon) * e / (p - e);
+  const T t_l =
+      rdiv_c(1.0, rdiv_c(1.0, td - T(56)) + div_c(dlog(t / td), 800.0)) +
+      T(56);
+  const T th_l = t * dpow(rdiv_c(kP0, p - e), T(kKappa)) *
+                 dpow(t / t_l, T(0.28) * r);
+  return th_l *
+         dexp(r * (T(0.448) * r + T(1)) * (rdiv_c(3036.0, t_l) - T(1.78)));
 }
 
 }  // namespace

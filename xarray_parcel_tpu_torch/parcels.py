@@ -7,10 +7,11 @@ downstream op is first-valid-index aware.
 
 On a CUDA tensor :func:`bridge_neighbors` runs in the hand-written kernel
 ``csrc/neighbors.cu`` (a thread per row, the tile staged in shared
-memory), and :func:`mix_layers`, every mixed layer of a fused pipeline
-call, in ``csrc/mix_layer.cu`` (likewise); on a CPU tensor each runs in
-its plain twin (``_bridge_neighbors_twin``, ``_mix_layers_twin``), all
-through the seam (:mod:`._kernels`).
+memory), :func:`mix_layers`, every mixed layer of a fused pipeline call,
+in ``csrc/mix_layer.cu``, and :func:`from_most_unstable_parcel` in
+``csrc/most_unstable.cu`` (likewise); on a CPU tensor each runs in its
+plain twin (``_bridge_neighbors_twin``, ``_mix_layers_twin``,
+``_most_unstable_twin``), all through the seam (:mod:`._kernels`).
 """
 
 import torch
@@ -216,18 +217,105 @@ def most_unstable_parcel(pressure, temperature, dewpoint, depth=300.0):
     return {k_: nanmax(v, where=sel) for k_, v in layer.items()}
 
 
+def _most_unstable_twin(pressure, temperature, dewpoint, depth=300.0):
+    """:func:`from_most_unstable_parcel` as plain torch ops (the kernel's
+    twin): :func:`most_unstable_parcel`, then every level below the parcel
+    NaN.  Returns the field pressure, temperature and dewpoint, each in
+    the shape the three inputs broadcast to, then the parcel's."""
+    parcel = most_unstable_parcel(pressure, temperature, dewpoint,
+                                  depth=depth)
+    keep = pressure <= parcel['pressure'][..., None]
+    return (torch.where(keep, pressure, torch.nan),
+            torch.where(keep, temperature, torch.nan),
+            torch.where(keep, dewpoint, torch.nan),
+            parcel['pressure'], parcel['temperature'], parcel['dewpoint'])
+
+
+def _most_unstable_on_card(launch, pressure, temperature, dewpoint,
+                           depth=300.0):
+    """:data:`most_unstable_kernel` on CUDA tensors: one launch of the
+    library's ``most_unstable_<dtype>``."""
+    shape = temperature.shape
+    _check_columns(pressure, temperature, dewpoint)
+    # One allocation for the fields and one for the parcel.
+    fields = torch.empty((3, *shape), dtype=temperature.dtype,
+                         device=temperature.device)
+    parcel = torch.empty((3, *shape[:-1]), dtype=temperature.dtype,
+                         device=temperature.device)
+    depths = None
+    if torch.is_tensor(depth) and depth.numel() != 1:
+        # A depth a column, read as a (B,) vector.
+        depths = depth.expand(shape[:-1]).reshape(-1).contiguous()
+        depth = 0.0
+    if fields.numel() > 0:
+        rows, t, td, row_stride = _column_rows(pressure, temperature,
+                                               dewpoint)
+        B, L = rows.shape
+        launch('most_unstable', [rows.data_ptr(), t.data_ptr(),
+                                 td.data_ptr(),
+                                 None if depths is None else depths.data_ptr(),
+                                 fields.data_ptr(), parcel.data_ptr()],
+               B, L, row_stride, float(depth))
+    return (*fields, *parcel)
+
+
+#: :func:`from_most_unstable_parcel` as one kernel call: (pressure,
+#: temperature, dewpoint, depth) to the flat tuple of
+#: :func:`_most_unstable_twin`.  CUDA tensors go to the hand-written
+#: kernel (``most_unstable_kernel.launches`` counts each launch, one a
+#: call): float32 or float64, temperature and dewpoint of one shape of
+#: one level or more, the pressure broadcasting to it, read in place where
+#: its rows are one row or contiguous (else copied); the depth a number or
+#: a tensor of their dtype that broadcasts to the columns (a depth a
+#: column).  On either device every field takes the full shape.  Rows of
+#: any width: one too long for a block's shared memory (some 18,000 levels
+#: in float32, 9,000 in float64) is read in place.  CPU tensors go to the
+#: plain twin.  The three fields take a gradient, through the twin's VJP.
+most_unstable_kernel = Kernel('most-unstable', _most_unstable_twin,
+                              _most_unstable_on_card,
+                              differentiable=(0, 1, 2))
+
+
+def _unflatten(out):
+    """(fields dict, parcel dict) of a flat (p, t, td, parcel p, t, td)."""
+    keys = ('pressure', 'temperature', 'dewpoint')
+    return dict(zip(keys, out[:3])), dict(zip(keys, out[3:6]))
+
+
+def _card_inputs(pressure, temperature, dewpoint, depth):
+    """:func:`from_most_unstable_parcel`'s CUDA inputs as
+    :data:`most_unstable_kernel` takes them, where the plain ops take them
+    too: pressure, temperature and dewpoint in one dtype (the three's
+    promoted one, float32 at least), the last two expanded to the shape
+    all three broadcast to (views); a one-element depth as a number, a
+    longer one in that dtype on their device."""
+    dtype = torch.promote_types(
+        torch.promote_types(pressure.dtype, temperature.dtype),
+        dewpoint.dtype)
+    dtype = torch.float64 if dtype == torch.float64 else torch.float32
+    shape = torch.broadcast_shapes(pressure.shape, temperature.shape,
+                                   dewpoint.shape)
+    if torch.is_tensor(depth):
+        depth = (float(depth) if depth.numel() == 1
+                 else depth.to(pressure.device, dtype))
+    return (pressure.to(dtype), temperature.to(dtype).expand(shape),
+            dewpoint.to(dtype).expand(shape), depth)
+
+
 def from_most_unstable_parcel(pressure, temperature, dewpoint, depth=300.0):
     """Mask every column below its most unstable parcel.  Returns (fields
-    dict of NaN-prefixed (…, L) columns, parcel dict)."""
+    dict of NaN-prefixed (…, L) columns, parcel dict).  Through
+    :data:`most_unstable_kernel`; on CUDA tensors with the inputs made
+    what it takes (:func:`_card_inputs`) and each output back in the dtype
+    of its input, as the plain ops give it."""
     with span('xparcel.prep.most_unstable'):
-        parcel = most_unstable_parcel(pressure, temperature, dewpoint,
-                                      depth=depth)
-        keep = pressure <= parcel['pressure'][..., None]
-        return {
-            'pressure': torch.where(keep, pressure, torch.nan),
-            'temperature': torch.where(keep, temperature, torch.nan),
-            'dewpoint': torch.where(keep, dewpoint, torch.nan),
-        }, parcel
+        if not pressure.is_cuda:
+            return _unflatten(most_unstable_kernel(pressure, temperature,
+                                                   dewpoint, depth))
+        out = most_unstable_kernel(*_card_inputs(pressure, temperature,
+                                                 dewpoint, depth))
+        dtypes = [x.dtype for x in (pressure, temperature, dewpoint)] * 2
+        return _unflatten(tuple(o.to(d) for o, d in zip(out, dtypes)))
 
 
 def mix_layer(pressure, temperature, dewpoint, depth=100.0, conserved=None,
@@ -299,11 +387,11 @@ def _check_depths(depths):
                          f'{len(depths)}')
 
 
-def _mix_layers_on_card(launch, pressure, temperature, dewpoint, depths):
-    """:data:`mix_layers_kernel` on CUDA tensors: one launch of the
-    library's ``mix_layers_<dtype>``."""
+def _check_columns(pressure, temperature, dewpoint):
+    """Raise ``ValueError`` unless temperature and dewpoint share a shape
+    of one level or more that the pressure broadcasts to: what the column
+    kernels (``csrc/mix_layer.cu``, ``csrc/most_unstable.cu``) take."""
     shape = temperature.shape
-    _check_depths(depths)
     if (temperature.dim() == 0 or dewpoint.shape != shape
             or pressure.dim() == 0 or pressure.dim() > len(shape)
             or pressure.shape[-1] != shape[-1]
@@ -313,6 +401,26 @@ def _mix_layers_on_card(launch, pressure, temperature, dewpoint, depths):
                          f'{tuple(shape)} and dewpoint '
                          f'{tuple(dewpoint.shape)}: the last two must share '
                          f'a shape that the pressure broadcasts to')
+    if shape[-1] == 0:
+        raise ValueError('a column kernel takes one level or more')
+
+
+def _column_rows(pressure, temperature, dewpoint):
+    """The non-empty inputs of a column kernel as it reads them, B rows of
+    L levels: ``(rows, t, td, row_stride)``, the pressure as
+    :func:`_kernel_rows` gives it, t and td contiguous."""
+    rows, row_stride = _kernel_rows(pressure, temperature.shape)
+    B, L = rows.shape
+    return (rows, temperature.reshape(B, L).contiguous(),
+            dewpoint.reshape(B, L).contiguous(), row_stride)
+
+
+def _mix_layers_on_card(launch, pressure, temperature, dewpoint, depths):
+    """:data:`mix_layers_kernel` on CUDA tensors: one launch of the
+    library's ``mix_layers_<dtype>``."""
+    shape = temperature.shape
+    _check_depths(depths)
+    _check_columns(pressure, temperature, dewpoint)
     D = len(depths)
     # One allocation for the fields and one for the parcels of every depth.
     fields = torch.empty((D, 3, *shape), dtype=temperature.dtype,
@@ -320,10 +428,9 @@ def _mix_layers_on_card(launch, pressure, temperature, dewpoint, depths):
     parcel = torch.empty((D, 3, *shape[:-1]), dtype=temperature.dtype,
                          device=temperature.device)
     if fields.numel() > 0:
-        rows, row_stride = _kernel_rows(pressure, shape)
+        rows, t, td, row_stride = _column_rows(pressure, temperature,
+                                               dewpoint)
         B, L = rows.shape
-        t = temperature.reshape(B, L).contiguous()
-        td = dewpoint.reshape(B, L).contiguous()
         ds = [float(d) for d in depths]
         launch('mix_layers', [rows.data_ptr(), t.data_ptr(), td.data_ptr(),
                               fields.data_ptr(), parcel.data_ptr()],
@@ -335,13 +442,12 @@ def _mix_layers_on_card(launch, pressure, temperature, dewpoint, depths):
 #: depths) to the flat tuple of :func:`_mix_layers_twin`; one or two
 #: depths.  CUDA tensors go to the hand-written kernel
 #: (``mix_layers_kernel.launches`` counts each launch, one a call):
-#: float32 or float64, temperature and dewpoint of one shape, the pressure
-#: broadcasting to it, read in place where its rows are one row or
-#: contiguous (else copied).  On either device every output takes the full
-#: shape.  A row's levels must fit one block's
-#: shared memory: some 13,000 in float32, 7,000 in float64.  CPU tensors
-#: go to the plain twin.
-#: The three fields take a gradient, through the twin's VJP.
+#: float32 or float64, temperature and dewpoint of one shape of one level
+#: or more, the pressure broadcasting to it, read in place where its rows
+#: are one row or contiguous (else copied).  On either device every output
+#: takes the full shape.  A row's levels must fit one block's shared
+#: memory: some 13,000 in float32, 7,000 in float64.  CPU tensors go to the
+#: plain twin.  The three fields take a gradient, through the twin's VJP.
 mix_layers_kernel = Kernel('mixed-layer', _mix_layers_twin,
                            _mix_layers_on_card, differentiable=(0, 1, 2))
 
@@ -357,9 +463,7 @@ def mix_layers(pressure, temperature, dewpoint, depths):
     with span('xparcel.prep.mix_layer'):
         out = mix_layers_kernel(pressure, temperature, dewpoint,
                                 tuple(depths))
-    keys = ('pressure', 'temperature', 'dewpoint')
-    return [(dict(zip(keys, out[i:i + 3])), dict(zip(keys, out[i + 3:i + 6])))
-            for i in range(0, len(out), 6)]
+    return [_unflatten(out[i:i + 6]) for i in range(0, len(out), 6)]
 
 
 def most_unstable_cape_cin(pressure, temperature, dewpoint, depth=300.0,

@@ -9,15 +9,17 @@ the reference's variable names: ``pressure``, ``temperature``,
 The modular pipelines ``conv_properties`` and ``min_conv_properties``
 build every parcel profile (``cape.cape_cin``) and are plain torch on
 either device, but for the mixed layers' neighbour scans
-(``parcels.bridge_neighbors``), which run in the ``csrc/neighbors.cu``
-kernel on CUDA tensors.  In the fused ones, ``conv_properties_fused`` and
+(``parcels.bridge_neighbors``) and the most-unstable prep
+(``parcels.from_most_unstable_parcel``), which run in the
+``csrc/neighbors.cu`` and ``csrc/most_unstable.cu`` kernels on CUDA
+tensors.  In the fused ones, ``conv_properties_fused`` and
 ``min_conv_properties_fused``, the mixed layers of a call run on CUDA
 tensors in one launch of the ``csrc/mix_layer.cu`` kernel
-(``parcels.mix_layers``; with ``mix_grow``, the modular path's code), each
-CAPE/CIN solve in the ``csrc/prepass.cu`` and ``csrc/fused_cape.cu``
-kernels and the diagnostics tail (t850/td850, lapse rate and t500,
-freezing and melting levels) in the ``csrc/diag_tail.cu`` kernel, once
-per call.
+(``parcels.mix_layers``; with ``mix_grow``, the modular path's code), the
+most-unstable prep in one of ``csrc/most_unstable.cu``, each CAPE/CIN
+solve in the ``csrc/prepass.cu`` and ``csrc/fused_cape.cu`` kernels and
+the diagnostics tail (t850/td850, lapse rate and t500, freezing and
+melting levels) in the ``csrc/diag_tail.cu`` kernel, once per call.
 """
 
 import torch
